@@ -5,8 +5,8 @@ parameters live in `CoatiModel`, an nn.Module whose state-dict keys are
 those of the reference e3gnn_smiles_clip_e2e ('xformer.*',
 'point_encoder.*', 'smiles_to_clip.*', 'point_to_clip.*',
 'point_clip_to_special_tokens.*', 'fp_networks.*'), so a reference state
-dict loads with load_state_dict(strict=True). The point encoder's weights
-are loaded and kept; running it (the EGNN and its kernel) is a later slice.
+dict loads with load_state_dict(strict=True). The point encoder runs through
+models/egnn.py; the training forward and the losses are a later slice.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from coati_tpu_torch.models.egnn import N_ONE_HOT, N_TORCH_EMB, EgnnConfig, egnn_forward
 from coati_tpu_torch.models.transformer import (
     SmilesTransformer,
     TransformerConfig,
@@ -26,9 +27,6 @@ from coati_tpu_torch.models.transformer import (
     stop_token_hidden,
 )
 from coati_tpu_torch.ops.layers import cast_floats, layer_norm, linear
-
-N_ONE_HOT = 28  # point-encoder atom one-hot width (coati_tpu/models/egnn.py)
-N_TORCH_EMB = 84  # rows of the point encoder's nn.Embedding table when torch_emb
 
 
 @dataclass(frozen=True)
@@ -92,6 +90,21 @@ class CoatiConfig:
             topk_recall=self.topk_recall,
             remat=self.remat,
             softmax_dtype=self.softmax_dtype,
+        )
+
+    @property
+    def egnn_config(self) -> EgnnConfig:
+        return EgnnConfig(
+            hidden_nf=self.n_hidden_e3nn,
+            n_layers=self.n_layer_e3gnn,
+            message_cutoff=self.msg_cutoff_e3nn if self.honor_msg_cutoff else 5.0,
+            instance_norm=True,
+            torch_emb=self.torch_emb,
+            residual=self.residual,
+            dropout=0.0,
+            dtype=self.dtype,
+            precision=self.precision,
+            remat=self.egnn_remat,
         )
 
 
@@ -182,6 +195,23 @@ def encode_tokens(
     return apply_projection(proj, h, cfg.old_architecture)
 
 
+def encode_points(
+    params: CoatiModel, cfg: CoatiConfig, atoms: torch.Tensor, coords: torch.Tensor
+) -> torch.Tensor:
+    """(B, N), (B, N, 3) -> (B, embed_dim); zeros when the point encoder
+    is ablated."""
+    encoder = getattr(params, "point_encoder", None)
+    if not cfg.use_point_encoder or encoder is None:
+        return torch.zeros(
+            (atoms.shape[0], cfg.embed_dim),
+            dtype=cfg.xformer_config.compute_dtype, device=atoms.device,
+        )
+    ecfg = cfg.egnn_config
+    h = egnn_forward(encoder, ecfg, atoms, coords)
+    proj = cast_floats(params.point_to_clip, ecfg.compute_dtype)
+    return apply_projection(proj, h, cfg.old_architecture)
+
+
 def clip_to_special_token(params: CoatiModel, h_clip: torch.Tensor) -> torch.Tensor:
     """SiLU -> Linear token MLP, identity without token_mlp."""
     mlp = getattr(params, "point_clip_to_special_tokens", None)
@@ -189,3 +219,33 @@ def clip_to_special_token(params: CoatiModel, h_clip: torch.Tensor) -> torch.Ten
         return h_clip
     lin = mlp[1]
     return linear(F.silu(h_clip), lin.weight, lin.bias)
+
+
+def fp_predictions(params: CoatiModel, cfg: CoatiConfig, clip_token: torch.Tensor) -> dict:
+    """Fingerprint/descriptor logits from a (post-token-MLP) clip token:
+    the heads read the smiles clip token."""
+    heads = getattr(params, "fp_networks", None)
+    if not heads:
+        return {}
+    return {name: linear(clip_token, head.weight, head.bias) for name, head in heads.items()}
+
+
+def tokens_likelihood(
+    params: CoatiModel,
+    cfg: CoatiConfig,
+    tokens: torch.Tensor,
+    y_next: torch.Tensor,
+    injection: Optional[torch.Tensor] = None,
+    unk_token: Optional[int] = None,
+) -> torch.Tensor:
+    """Summed next-token NLL per row with -1-masked labels, in float32:
+    the backbone of hclip_and_tokens_to_likelihood and
+    batch_smiles_to_s2s_likelihood."""
+    xcfg = cfg.xformer_config
+    hidden = forward_hidden(params.xformer, xcfg, tokens, injection, unk_token)
+    lm_head = cast_floats(params.xformer.lm_head, xcfg.compute_dtype)
+    logp = F.log_softmax(linear(hidden, lm_head.weight).float(), dim=-1)
+    valid = y_next != -1
+    safe = torch.where(valid, y_next, 0)
+    nll = -logp.gather(-1, safe[..., None])[..., 0]
+    return torch.where(valid, nll, 0.0).sum(dim=-1)

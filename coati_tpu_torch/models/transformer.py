@@ -9,12 +9,13 @@ weights in PyTorch's (out, in) layout; the functions below take it as
 `params`, as the JAX functions take their parameter pytree.
 
 Attention goes through the port's kernels: K2 (flash causal attention)
-for every full-sequence pass, encode and prefill alike, and K1 (masked
-read decode attention) for every decode step. On CPU tensors the kernel
-wrappers run their plain versions. The config fields `prefill_kernel` and
-`decode_kernel` stay so documents load, but cannot route around the
-kernels: their TPU-era choices ("xla", "pallas", "auto") all mean the
-kernel, and "packed" (TPU kernel K5, not ported yet) raises.
+for every full-sequence pass, encode and prefill alike, or K5f (the
+short-sequence kernel, T <= 128) under prefill_kernel="packed"; and K1
+(masked read decode attention) for every decode step. On CPU tensors the
+kernel wrappers run their plain versions. The config fields
+`prefill_kernel` and `decode_kernel` stay so documents load, but cannot
+route around the kernels: their other TPU-era choices ("xla", "pallas",
+"auto") all mean K2 and K1.
 
 The KV cache is updated in place: prefill and decode_step write into the
 cache they are given and return it.
@@ -34,6 +35,8 @@ from coati_tpu_torch.ops.kernels.decode_attention import (
     decode_attention_quant,
 )
 from coati_tpu_torch.ops.kernels.flash_attention import flash_causal_attention
+from coati_tpu_torch.ops.kernels.packed_attention import MAX_T as PACKED_MAX_T
+from coati_tpu_torch.ops.kernels.packed_attention import packed_causal_attention
 from coati_tpu_torch.ops.layers import cast_floats, gelu_tanh, layer_norm, linear
 from coati_tpu_torch.ops.rotary import apply_rotary, rotary_tables
 
@@ -153,19 +156,28 @@ class SmilesTransformer(nn.Module):
 
 
 def _check_kernel_fields(cfg: TransformerConfig) -> None:
-    if cfg.prefill_kernel == "packed":
-        raise NotImplementedError(
-            "prefill_kernel='packed' is the head-packed TPU kernel K5 "
-            "(coati_tpu/ops/pallas/packed_attention.py), not ported yet; the port "
-            "runs every full-sequence pass through its flash kernel K2"
-        )
-    if cfg.prefill_kernel not in ("auto", "xla", "pallas"):
+    if cfg.prefill_kernel not in ("auto", "xla", "pallas", "packed"):
         raise ValueError(
             f"prefill_kernel must be 'auto', 'xla', 'pallas' or 'packed', got "
             f"{cfg.prefill_kernel!r}"
         )
     if cfg.decode_kernel not in ("xla", "pallas"):
         raise ValueError(f"decode_kernel must be 'xla' or 'pallas', got {cfg.decode_kernel!r}")
+
+
+def _full_attention(q, k, v, cfg: TransformerConfig) -> torch.Tensor:
+    """Causal attention over a full sequence, (B, T, H, Dh) -> the same:
+    K5f under prefill_kernel="packed", which refuses what that kernel does
+    not serve, else K2."""
+    if cfg.prefill_kernel == "packed":
+        t = q.shape[1]
+        if t > PACKED_MAX_T or cfg.n_head <= 1:
+            raise ValueError(
+                f"prefill_kernel='packed' needs T <= {PACKED_MAX_T} and n_head > 1, "
+                f"got T={t}, n_head={cfg.n_head}"
+            )
+        return packed_causal_attention(q, k, v)
+    return flash_causal_attention(q, k, v)
 
 
 def _rotary(cfg: TransformerConfig, device: torch.device):
@@ -223,7 +235,7 @@ def _block_full(x, blk: Block, cfg: TransformerConfig, cos, sin):
     """One block over a full sequence. x: (B, T, D)."""
     b, t, d = x.shape
     q, k, v = _qkv(x, blk, cfg, cos, sin)
-    attn = flash_causal_attention(q, k, v).reshape(b, t, d)
+    attn = _full_attention(q, k, v, cfg).reshape(b, t, d)
     return _block_tail(x, attn, blk)
 
 
@@ -337,7 +349,7 @@ def prefill(
     for layer, blk in enumerate(params.transformer.h):
         q, k, v = _qkv(x, blk, cfg, cos, sin)
         _write_kv(cache, layer, slice(0, p), k, v)
-        attn = flash_causal_attention(q, k, v).reshape(b, p, cfg.n_embd)
+        attn = _full_attention(q, k, v, cfg).reshape(b, p, cfg.n_embd)
         x = _block_tail(x, attn, blk)
     lnf = params.transformer.ln_f
     return layer_norm(x, lnf.weight, lnf.bias), cache

@@ -46,28 +46,32 @@ def _library():
     return fn
 
 
-def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def check_qkv(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str = "flash_causal_attention"
+) -> None:
+    """Raise on q, k, v that the attention kernels (this one and the
+    short-sequence one, which shares the interface) do not take."""
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(
-            f"flash_causal_attention wants q, k, v of one (B, T, H, Dh) shape, got "
+            f"{name} wants q, k, v of one (B, T, H, Dh) shape, got "
             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
         )
     if not (q.device == k.device == v.device) or q.device.type != "cuda":
-        raise ValueError("flash_causal_attention: q, k, v must lie on one CUDA device")
+        raise ValueError(f"{name}: q, k, v must lie on one CUDA device")
     if q.dtype not in DTYPES or not (q.dtype == k.dtype == v.dtype):
         raise TypeError(
-            f"flash_causal_attention takes float32 or bfloat16 q, k, v of one dtype, got "
+            f"{name} takes float32 or bfloat16 q, k, v of one dtype, got "
             f"{q.dtype}, {k.dtype}, {v.dtype}"
         )
     b, t, h, dh = q.shape
     if dh not in HEAD_DIMS:
-        raise ValueError(f"flash_causal_attention: head dim {dh} not in {HEAD_DIMS}")
+        raise ValueError(f"{name}: head dim {dh} not in {HEAD_DIMS}")
     if b > 65535 or h > 65535:
-        raise ValueError(f"flash_causal_attention: batch {b} or heads {h} above 65535")
-    for name, x in (("q", q), ("k", k), ("v", v)):
+        raise ValueError(f"{name}: batch {b} or heads {h} above 65535")
+    for arg, x in (("q", q), ("k", k), ("v", v)):
         if x.stride(3) != 1 or x.stride(2) != dh:
             raise ValueError(
-                f"flash_causal_attention: {name} needs packed heads (strides (*, *, {dh}, 1)), "
+                f"{name}: {arg} needs packed heads (strides (*, *, {dh}, 1)), "
                 f"got {x.stride()}"
             )
 
@@ -76,7 +80,7 @@ def flash_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) ->
     """q, k, v: (B, T, H, Dh) -> (B, T, H, Dh), causal, softmax in float32."""
     if q.device.type == "cpu":
         return causal_attention(q, k, v, softmax_dtype=torch.float32)
-    _check_inputs(q, k, v)
+    check_qkv(q, k, v)
     b, t, h, dh = q.shape
     out = torch.empty((b, t, h, dh), dtype=q.dtype, device=q.device)
     err = _library()(

@@ -1,8 +1,8 @@
 """Elementary neural-net ops shared across models.
 
 Plain functions on tensors, numerics of coati_tpu/ops/layers.py: LayerNorm
-with eps 1e-5 and statistics in float32, tanh-approximated GELU. Linear
-weights use PyTorch's (out_features, in_features) layout.
+and instance norm with eps 1e-5 and statistics in float32, tanh-approximated
+GELU. Linear weights use PyTorch's (out_features, in_features) layout.
 """
 
 from __future__ import annotations
@@ -35,6 +35,16 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torc
     """LayerNorm over the last axis, stats and affine in float32."""
     y = F.layer_norm(x.float(), (x.shape[-1],), scale.float(), bias.float(), LN_EPS)
     return y.to(x.dtype)
+
+
+def instance_norm_lastdim(x: torch.Tensor) -> torch.Tensor:
+    """Affine-free normalization over the last axis, stats in float32 with
+    the biased variance (how the reference applies torch InstanceNorm1d to
+    (B, atoms, hidden) tensors: per (batch, atom) over the hidden dim)."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    return ((xf - mean) * torch.rsqrt(var + LN_EPS)).to(x.dtype)
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """coati_tpu_torch composite model, sampler, API and IO against coati_tpu
 on the CPU: weights carried across both ways, encode and the clip-token
 MLP, greedy generation token for token, the embed -> decode round trip
-with shared host noise, and the trained grande document
-docs/eval_model_r5.pkl.
+with shared host noise, prefix completion, the likelihood methods, the
+fingerprint heads, and the trained grande document docs/eval_model_r5.pkl
+on both of its paths (SMILES and 3D point clouds).
 
 Tolerance atol 3e-5, rtol 1e-4 (float32 summation order) unless a line
 says otherwise; the JAX side runs at precision="highest"."""
@@ -23,6 +24,8 @@ from coati_tpu.models.convert import export_coati
 from coati_tpu.models.io import load_e3gnn_smiles_clip_e2e as jax_load
 from coati_tpu.models.io import params_to_state, serialize_model
 
+from coati_tpu_torch.data import load_points_fixture
+from coati_tpu_torch.generative.purifications import embed_smiles_batch
 from coati_tpu_torch.models import coati as tco
 from coati_tpu_torch.models import sampler as tsm
 from coati_tpu_torch.models.api import COATI
@@ -78,6 +81,13 @@ def _smiles_tokens(tok, smiles, width=None):
 
 
 SMALL_SMILES = ["CCO", "CC", "CCCN", "CNC(C)O"]
+
+
+def _points(seed=0):
+    """Four small ragged point clouds: (atoms (4, 9) int, coords (4, 9, 3))."""
+    rng = np.random.default_rng(seed)
+    atoms = rng.choice([1, 6, 7, 8], size=(4, 9)) * (np.arange(9)[None] < [[9], [6], [3], [1]])
+    return atoms.astype(np.int32), rng.normal(scale=2.0, size=(4, 9, 3)).astype(np.float32)
 
 
 @pytest.mark.parametrize("old_architecture", [False, True])
@@ -216,8 +226,113 @@ def test_documents_load_in_both_formats(tmp_path):
         loaded, ltok = load_e3gnn_smiles_clip_e2e(str(path), device="cpu")
         assert ltok.n_token == tok.n_token and loaded.device.type == "cpu"
         _close(loaded.encode_tokens(toks, ltok), want.numpy(), atol=0, rtol=0)
-        with pytest.raises(NotImplementedError, match="EGNN"):
-            loaded.encode_points(None, None)
+        atoms, coords = _points()
+        _close(
+            loaded.encode_points(atoms, coords),
+            jco.encode_points(jparams, jcfg, jnp.asarray(atoms), jnp.asarray(coords)),
+        )
+
+
+@pytest.mark.parametrize("noise_scale", [0.0, 0.3])
+def test_points_api_greedy_token_exact(noise_scale):
+    """encode_points, points_to_2d_batch and points_to_2d against coati_tpu
+    on a small model, greedy, with the same seed (shared numpy host noise)."""
+    jparams, jcfg, model, tcfg, tok = _small(seed=8)
+    atoms, coords = _points(1)
+    jm, tm = JaxCOATI(jparams, jcfg, seed=5), COATI(model, tcfg, seed=5)
+    _close(tm.encode_points(atoms, coords), jm.encode_points(atoms, coords))
+    kw = dict(k=1, noise_scale=noise_scale, keep_special=True)
+    assert tm.points_to_2d_batch(atoms, coords, tok, **kw) == jm.points_to_2d_batch(
+        atoms, coords, tok, **kw
+    )
+    assert tm.points_to_2d(atoms[1], coords[1], tok, k=1) == jm.points_to_2d(
+        atoms[1], coords[1], tok, k=1
+    )
+
+
+def test_prefix_completion_greedy_token_exact_with_unequal_prefixes():
+    """complete_batch, prefix_generate_batch and smiles_to_graph_batch against
+    coati_tpu, greedy: prefixes of unequal length, so some rows keep prefix
+    tokens past the prefill."""
+    jparams, jcfg, model, tcfg, tok = _small(seed=9)
+    jm, tm = JaxCOATI(jparams, jcfg, seed=1), COATI(model, tcfg, seed=1)
+    prefixes = ["[SMILES]C", "[SMILES]CC(N", "[SMILES]", "[SMILES]CCOC(C)"]
+    for kw in (dict(), dict(keep_special=True, de_fim=False)):
+        assert tm.complete_batch(prefixes, tok, k=1, **kw) == jm.complete_batch(
+            prefixes, tok, k=1, **kw
+        )
+    parts = ["C", "CC(N", "CCOC"]
+    assert tm.prefix_generate_batch(parts, tok, k=1, keep_special=True) == (
+        jm.prefix_generate_batch(parts, tok, k=1, keep_special=True)
+    )
+    assert tm.prefix_generate_batch(parts, tok, k=1) == jm.prefix_generate_batch(parts, tok, k=1)
+    assert tm.smiles_to_graph_batch(["CCO", "C"], tok, k=1) == jm.smiles_to_graph_batch(
+        ["CCO", "C"], tok, k=1
+    )
+    assert tm.smiles_to_graph("CCO", tok, k=1) == jm.smiles_to_graph("CCO", tok, k=1)
+
+
+def test_likelihood_methods_match_jax(monkeypatch):
+    """tokens_likelihood, hclip_and_tokens_to_likelihood and
+    batch_smiles_to_s2s_likelihood against coati_tpu at rtol 1e-4; an
+    untokenizable row is masked out in both; chunking the batch changes
+    nothing."""
+    from coati_tpu_torch.models import api as tapi
+
+    jparams, jcfg, model, tcfg, tok = _small(seed=10)
+    jm, tm = JaxCOATI(jparams, jcfg), COATI(model, tcfg)
+    smiles = ["CCO", "C?C", "CNC(C)O", "CC", "CCCN"]
+    jnll, jmask = jm.batch_smiles_to_s2s_likelihood(smiles, tok)
+    nll, mask = tm.batch_smiles_to_s2s_likelihood(smiles, tok)
+    np.testing.assert_array_equal(mask, jmask)
+    assert mask.tolist() == [True, False, True, True, True] and nll.shape == (4,)
+    _close(nll, jnll, atol=1e-5, rtol=1e-4)
+    monkeypatch.setattr(tapi, "LIKELIHOOD_CHUNK", 3)
+    chunked, _ = tm.batch_smiles_to_s2s_likelihood(smiles, tok)
+    _close(chunked, nll.numpy(), atol=1e-6, rtol=1e-6)
+    empty, none = tm.batch_smiles_to_s2s_likelihood(["C?C"], tok)
+    assert empty.shape == (0,) and none.tolist() == [False]
+
+    hclip = np.random.default_rng(11).normal(size=(tcfg.embed_dim,)).astype(np.float32)
+    for smi in ("CCO", "CNC(C)O"):
+        _close(
+            tm.hclip_and_tokens_to_likelihood(hclip, smi, tok),
+            jm.hclip_and_tokens_to_likelihood(hclip, smi, tok),
+            atol=1e-5, rtol=1e-4,
+        )
+    _close(
+        tm.hclip_and_tokens_to_likelihood(torch.tensor(hclip), "CC", tok),
+        jm.hclip_and_tokens_to_likelihood(hclip, "CC", tok),
+        atol=1e-5, rtol=1e-4,
+    )
+
+
+def test_fingerprint_heads_match_jax():
+    """get_fp_pred_v2 and get_fp_pred on a tiny model with an fp_map."""
+    fp_map = (("morgan", 24), ("maccs", 7))
+    jparams, jcfg, model, tcfg, tok = _small(seed=12, fp_map=fp_map)
+    jm, tm = JaxCOATI(jparams, jcfg), COATI(model, tcfg)
+    toks = _smiles_tokens(tok, SMALL_SMILES)
+    atoms, coords = _points(2)
+    for name, bits in fp_map:
+        mine = tm.get_fp_pred_v2(toks, tok, name)
+        assert mine.shape == (4, bits)
+        _close(mine, jm.get_fp_pred_v2(toks, tok, name))
+        _close(tm.get_fp_pred(toks, tok, atoms, coords, name),
+               jm.get_fp_pred(toks, tok, atoms, coords, name))
+    h = tm.encode_tokens(toks, tok)
+    preds = tco.fp_predictions(model, tcfg, tco.clip_to_special_token(model, h))
+    assert sorted(preds) == ["maccs", "morgan"]
+    assert tco.fp_predictions(*_small(seed=12)[2:4], h) == {}
+
+
+def test_embed_smiles_batch_matches_jax():
+    from coati_tpu.generative.purifications import embed_smiles_batch as jax_embed
+
+    jparams, jcfg, model, tcfg, tok = _small(seed=13)
+    mine = embed_smiles_batch(SMALL_SMILES, COATI(model, tcfg), tok)
+    assert isinstance(mine, np.ndarray) and mine.dtype == np.float32
+    _close(mine, jax_embed(SMALL_SMILES, JaxCOATI(jparams, jcfg), tok))
 
 
 # ------------------------------------------------------- the trained model
@@ -247,3 +362,93 @@ def test_trained_document_embeddings_and_greedy_decodes(trained_pair):
     )
     _close(h, jh)
     assert smiles == jsmiles
+
+
+# rows of the fixture with at most 21 atoms, so that N = 24 holds them
+FIXTURE_ROWS = [849, 400, 648, 330, 482, 532, 3, 810]
+
+
+def _fixture_points():
+    smiles, atoms, coords = load_points_fixture()
+    assert atoms.shape == (1024, 128) and coords.shape == (1024, 128, 3)
+    assert (atoms[FIXTURE_ROWS, 24:] == 0).all()
+    return ([smiles[i] for i in FIXTURE_ROWS], atoms[FIXTURE_ROWS, :24].astype(np.int32),
+            coords[FIXTURE_ROWS, :24])
+
+
+def test_points_fixture_is_packed_and_matches_its_smiles():
+    """Atoms come before the padding in every row, padding has zero
+    coordinates, and each row has the heavy atoms of its SMILES."""
+    smiles, atoms, coords = load_points_fixture()
+    live = atoms > 0
+    assert (live[:, :-1] >= live[:, 1:]).all() and live[:, 0].all()
+    assert not coords[~live].any() and np.isfinite(coords).all()
+    assert len(smiles) == len(set(smiles)) == 1024
+    for i in FIXTURE_ROWS:
+        assert (atoms[i] == 35).sum() == smiles[i].count("Br")
+        assert (atoms[i] == 16).sum() == smiles[i].count("S") + smiles[i].count("s")
+
+
+def test_trained_document_point_embeddings_and_greedy_decodes(trained_pair):
+    """The point-cloud path of docs/eval_model_r5.pkl (EGNN 5 x 256, cutoff
+    5 A) in both packages, fp32, on 8 molecules of the fixture: encode_points
+    agrees to the shared tolerance, and greedy points_to_2d_batch decodes
+    agree token for token. The decode runs at n_seq 64 in both, which cuts
+    the steps, not the model."""
+    jmodel, jtok, tmodel, ttok = trained_pair
+    smiles, atoms, coords = _fixture_points()
+    jh = jmodel.encode_points(atoms, coords)
+    h = tmodel.encode_points(atoms, coords)
+    assert h.shape == (8, 256)
+    _close(h, jh)
+    # a CLIP model: each point embedding lies nearest its own SMILES embedding
+    hs = tmodel.encode_tokens(_smiles_tokens(ttok, smiles, width=64), ttok)
+    sims = torch.nn.functional.cosine_similarity(h[:, None], hs[None], dim=-1)
+    assert sims.argmax(dim=1).tolist() == list(range(8))
+
+    jshort = JaxCOATI(jmodel.params, jmodel.config.replace(n_seq=64))
+    tshort = COATI(tmodel.params, tmodel.config.replace(n_seq=64))
+    kw = dict(k=1, keep_special=True)
+    decoded = tshort.points_to_2d_batch(atoms, coords, ttok, **kw)
+    assert decoded == jshort.points_to_2d_batch(atoms, coords, jtok, **kw)
+    assert all(s.startswith("[CLIP][UNK][SMILES]") for s in decoded)
+
+
+def test_trained_document_likelihoods_and_prefix_completion(trained_pair):
+    """The rest of the inference API on the trained document, fp32: the
+    likelihood methods within rtol 1e-4, and greedy prefix completion token
+    for token with prefixes of unequal length (at n_seq 64)."""
+    jmodel, jtok, tmodel, ttok = trained_pair
+    jnll, jmask = jmodel.batch_smiles_to_s2s_likelihood(SMILES, jtok)
+    nll, mask = tmodel.batch_smiles_to_s2s_likelihood(SMILES, ttok)
+    assert mask.all() and jmask.all()
+    _close(nll, jnll, atol=1e-4, rtol=1e-4)  # sums of ~30 terms of size ~1
+    hclip = np.asarray(jmodel.encode_tokens(_smiles_tokens(jtok, SMILES[:2], width=64), jtok))
+    for vec, smi in zip(hclip, SMILES[:2]):
+        _close(
+            tmodel.hclip_and_tokens_to_likelihood(vec, smi, ttok),
+            jmodel.hclip_and_tokens_to_likelihood(vec, smi, jtok),
+            atol=1e-4, rtol=1e-4,
+        )
+    jshort = JaxCOATI(jmodel.params, jmodel.config.replace(n_seq=64))
+    tshort = COATI(tmodel.params, tmodel.config.replace(n_seq=64))
+    prefixes = ["[SMILES]CC(=O)O", "[SMILES]c1cc", "[SMILES]", "[SMILES]CN1C=NC2=C1C(=O)"]
+    assert tshort.complete_batch(prefixes, ttok, k=1) == jshort.complete_batch(prefixes, jtok, k=1)
+    parts = ["CC(C)Cc1ccc", "N"]
+    assert tshort.prefix_generate_batch(parts, ttok, k=1, keep_special=True) == (
+        jshort.prefix_generate_batch(parts, jtok, k=1, keep_special=True)
+    )
+
+
+def test_trained_document_packed_prefill_equals_auto(trained_pair):
+    """prefill_kernel="packed" on the CPU: the same embeddings and greedy
+    decodes as "auto" (both wrappers run one plain version there)."""
+    _, _, tmodel, ttok = trained_pair
+    packed = COATI(tmodel.params, tmodel.config.replace(prefill_kernel="packed"))
+    toks = _smiles_tokens(ttok, SMILES[:4], width=64)
+    smiles, h = tmodel.smiles_to_2d_batch(toks, ttok, k=1, return_embeddings=True, total_len=64)
+    psmiles, ph = packed.smiles_to_2d_batch(toks, ttok, k=1, return_embeddings=True, total_len=64)
+    assert psmiles == smiles
+    _close(ph, h, atol=0, rtol=0)
+    with pytest.raises(ValueError, match="T <= 128"):
+        packed.encode_tokens(_smiles_tokens(ttok, SMILES[:2], width=250), ttok)

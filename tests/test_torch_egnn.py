@@ -1,0 +1,304 @@
+"""coati_tpu_torch point-cloud path against coati_tpu on the CPU: the plain
+version of the message kernel K3 (against the JAX reference and the JAX
+kernel's own CPU dispatch), instance norm, the cubic cutoff, the EGNN
+forward at 2 layers x 32 hidden with ragged atom counts and every option,
+and encode_points through weights carried across by convert.py.
+
+Inputs come from numpy seeds and go to both packages. Tolerance atol 3e-5,
+rtol 1e-4 (float32 summation order) unless a line says why; the JAX side
+runs at precision="highest"."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from coati_tpu.models import coati as jco
+from coati_tpu.models import egnn as jegnn
+from coati_tpu.models.io import params_to_state
+from coati_tpu.ops import layers as jlayers
+from coati_tpu.ops.pallas import egnn_messages as jmsg
+
+from coati_tpu_torch.common import periodic_table as tpt
+from coati_tpu_torch.models import coati as tco
+from coati_tpu_torch.models import egnn as tegnn
+from coati_tpu_torch.models.convert import state_from_coati_tpu
+from coati_tpu_torch.ops import egnn_messages as plain
+from coati_tpu_torch.ops import layers as tlayers
+from coati_tpu_torch.ops.kernels import egnn_messages as kmsg
+
+ATOL, RTOL = 3e-5, 1e-4
+
+
+def _close(mine, ref, atol=ATOL, rtol=RTOL):
+    mine = mine.detach().float().numpy() if isinstance(mine, torch.Tensor) else mine
+    np.testing.assert_allclose(mine, np.asarray(ref, np.float32), atol=atol, rtol=rtol)
+
+
+def _t(x):
+    return torch.tensor(np.asarray(x))
+
+
+# ------------------------------------------------------- the message kernel
+
+
+def _message_inputs(b, n, hm, seed, live=None):
+    """(a, c, d2, w, wd, b1, w2, b2) as numpy; `live` gives each molecule's
+    atom count: pairs with a padding atom, and self pairs, get w = 0."""
+    rng = np.random.default_rng(seed)
+    a, c = (rng.normal(size=(b, n, hm)).astype(np.float32) for _ in range(2))
+    d2 = rng.uniform(0.5, 25.0, size=(b, n, n)).astype(np.float32)
+    w = rng.uniform(0.0, 1.0, size=(b, n, n)).astype(np.float32)
+    w *= rng.uniform(size=(b, n, n)) < 0.7  # partners beyond the cutoff
+    w *= 1.0 - np.eye(n, dtype=np.float32)
+    if live is not None:
+        mask = (np.arange(n)[None, :] < np.asarray(live)[:, None]).astype(np.float32)
+        w *= mask[:, :, None] * mask[:, None, :]
+    wd, b1, b2 = (0.3 * rng.normal(size=(hm,)).astype(np.float32) for _ in range(3))
+    w2 = (rng.normal(size=(hm, hm)) / np.sqrt(hm)).astype(np.float32)
+    return a, c, d2, w.astype(np.float32), wd, b1, w2, b2
+
+
+def _jax_reference(args):
+    with jax.default_matmul_precision("highest"):
+        return jmsg.egnn_messages_reference(*(jnp.asarray(x) for x in args))
+
+
+@pytest.mark.parametrize(
+    "b,n,hm,live",
+    [(3, 11, 32, None), (4, 16, 128, (16, 9, 1, 0)), (2, 7, 20, (7, 3))],
+    ids=["dense", "ragged_with_all_padding_row", "odd_width"],
+)
+def test_plain_messages_match_jax_reference_and_jax_kernel_dispatch(b, n, hm, live):
+    """The plain version of K3 against egnn_messages_reference and against
+    egnn_messages, which on the CPU dispatches to that reference (the
+    Pallas body has no interpret switch; the JAX package's own tests run it
+    the same way). The wrapper on CPU tensors is the plain version."""
+    args = _message_inputs(b, n, hm, seed=b + n, live=live)
+    targs = [_t(x) for x in args]
+    mine = plain.egnn_messages(*targs)
+    _close(mine, _jax_reference(args))
+    with jax.default_matmul_precision("highest"):
+        _close(mine, jmsg.egnn_messages(*(jnp.asarray(x) for x in args)))
+    before = kmsg.egnn_messages.launches
+    _close(kmsg.egnn_messages(*targs), mine.numpy(), atol=0, rtol=0)
+    assert kmsg.egnn_messages.launches == before
+    if live is not None:  # padding atoms and an all-padding molecule get zeros
+        for row, count in enumerate(live):
+            assert not mine[row, count:].any()
+
+
+def test_plain_messages_chunking_and_bf16_product():
+    """Walking the batch in chunks changes nothing; the bf16 mode rounds
+    e1 and w2 to bf16 before the product and accumulates in float32, which
+    moves the result by bf16's rounding (2^-8 relative per factor), not
+    more."""
+    args = [_t(x) for x in _message_inputs(5, 9, 32, seed=3, live=(9, 9, 4, 6, 2))]
+    whole = plain.egnn_messages(*args)
+    one_by_one = plain.egnn_messages(*args, chunk_bytes=1)
+    _close(one_by_one, whole.numpy(), atol=1e-6, rtol=1e-6)
+    rounded = plain.egnn_messages(*args, mm_dtype=torch.bfloat16)
+    assert rounded.dtype == torch.float32
+    diff = (rounded - whole).abs().max().item()
+    assert 0 < diff < 2.0**-6 * whole.abs().max().item()
+    with pytest.raises(TypeError):
+        plain.egnn_messages(*args, mm_dtype=torch.float16)
+
+
+def test_plain_messages_are_differentiable():
+    """Autograd through the plain version gives the gradients of the JAX
+    reference (the training slice will hold the backward kernel to it)."""
+    args = _message_inputs(2, 6, 16, seed=4, live=(6, 4))
+    targs = [_t(x) for x in args]
+    for i in (0, 1, 4, 5, 6, 7):
+        targs[i].requires_grad_(True)
+    g = np.random.default_rng(5).normal(size=(2, 6, 16)).astype(np.float32)
+    (plain.egnn_messages(*targs) * _t(g)).sum().backward()
+
+    def loss(a, c, wd, b1, w2, b2):
+        d2, w = jnp.asarray(args[2]), jnp.asarray(args[3])
+        return jnp.sum(jmsg.egnn_messages_reference(a, c, d2, w, wd, b1, w2, b2) * g)
+
+    with jax.default_matmul_precision("highest"):
+        grads = jax.grad(loss, argnums=range(6))(*(jnp.asarray(args[i]) for i in (0, 1, 4, 5, 6, 7)))
+    for i, ref in zip((0, 1, 4, 5, 6, 7), grads):
+        _close(targs[i].grad, ref, atol=1e-4)  # sums over all pairs of the batch
+
+
+def test_message_wrapper_refuses_what_the_kernel_does_not_take():
+    meta = torch.device("meta")
+    a = torch.empty(2, 5, 8, device=meta)
+    p = torch.empty(2, 5, 5, device=meta)
+    v, m = torch.empty(8, device=meta), torch.empty(8, 8, device=meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        kmsg._check_inputs(a, a, p, p, v, v, m, v, torch.float32)
+    with pytest.raises(ValueError, match="shape"):
+        kmsg._check_inputs(a, a, p[:, :4], p, v, v, m, v, torch.float32)
+    with pytest.raises(TypeError, match="mm_dtype"):
+        kmsg._check_inputs(a, a, p, p, v, v, m, v, torch.float16)
+
+
+# ------------------------------------------------------------ small pieces
+
+
+def test_instance_norm_lastdim_matches_jax():
+    x = np.random.default_rng(0).normal(2.0, 3.0, size=(3, 5, 32)).astype(np.float32)
+    _close(tlayers.instance_norm_lastdim(_t(x)), jlayers.instance_norm_lastdim(jnp.asarray(x)))
+    half = tlayers.instance_norm_lastdim(_t(x).bfloat16())
+    assert half.dtype == torch.bfloat16  # statistics in float32, cast back
+    _close(half, jlayers.instance_norm_lastdim(jnp.asarray(x, jnp.bfloat16)).astype(jnp.float32),
+           atol=2.0**-6)  # one bf16 rounding of values up to 4
+
+
+def test_cubic_cutoff_at_zero_inside_at_and_past_the_cutoff():
+    x = np.asarray([-1.0, 0.0, 1e-3, 1.0, 2.5, 4.999, 5.0, 5.001, 40.0], np.float32)
+    mine = tegnn.cubic_cutoff(_t(x), 5.0)
+    _close(mine, jegnn.cubic_cutoff(jnp.asarray(x), 5.0))
+    assert mine[0] == 1.0 and mine[1] == 1.0 and mine[4] == 0.6875
+    assert (mine[6:] == 0).all() and (mine[2:6] > 0).all() and (mine[2:6] < 1).all()
+
+
+def test_one_hot_table_is_the_jax_package_s():
+    from coati_tpu.common import periodic_table as jpt
+
+    np.testing.assert_array_equal(tpt.xy_one_hot_full_table(), jpt.xy_one_hot_full_table())
+    atoms = np.asarray([[6, 1, 0], [35, 92, 8]])
+    np.testing.assert_array_equal(tpt.atoms_to_xy_features(atoms), jpt.atoms_to_xy_features(atoms))
+    assert tpt.N_XY_FEATURES == tegnn.N_ONE_HOT == 28
+    assert tpt.XY_ONE_HOT_FULL(92) == jpt.XY_ONE_HOT_FULL(92)  # the actinide quirk
+
+
+# -------------------------------------------------------------- the encoder
+
+
+def _points(b, n, seed, counts):
+    """Ragged molecules: atomic numbers packed before the 0 padding, and
+    coordinates a few Angstrom apart so that some pairs pass the cutoff."""
+    rng = np.random.default_rng(seed)
+    atoms = rng.choice([1, 6, 7, 8, 9, 16, 17, 35], size=(b, n))
+    atoms *= np.arange(n)[None, :] < np.asarray(counts)[:, None]
+    coords = rng.normal(scale=2.5, size=(b, n, 3)).astype(np.float32)
+    return atoms.astype(np.int32), coords
+
+
+def _egnn_pair(seed=0, **kw):
+    """A 2-layer, 32-wide EGNN in both packages, same weights."""
+    kwargs = dict(n_layer_e3gnn=2, n_layer_xformer=1, n_hidden_xformer=32, n_hidden_e3nn=32,
+                  n_embd_common=32, n_head=2, n_seq=16, n_tok=20, **kw)
+    jcfg = jco.CoatiConfig(precision="highest", prefill_kernel="xla", **kwargs)
+    jparams = jco.init_coati(jax.random.PRNGKey(seed), jcfg)
+    tcfg = tco.CoatiConfig(**kwargs)
+    model = tco.CoatiModel(tcfg)
+    state = state_from_coati_tpu(params_to_state(jparams), kw.get("old_architecture", False))
+    model.load_state_dict(state, strict=True)
+    model.requires_grad_(False)
+    return jparams, jcfg, model, tcfg
+
+
+COUNTS = (12, 7, 1, 0, 12)  # a lone atom and an all-padding row among them
+
+
+@pytest.mark.parametrize(
+    "options",
+    [
+        dict(),
+        dict(residual=True),
+        dict(torch_emb=True),
+        dict(torch_emb=True, residual=True),
+    ],
+    ids=["plain", "residual", "torch_emb", "torch_emb_residual"],
+)
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "dense"])
+def test_egnn_forward_matches_jax(options, fused):
+    jparams, jcfg, model, tcfg = _egnn_pair(seed=1, **options)
+    atoms, coords = _points(len(COUNTS), 12, seed=2, counts=COUNTS)
+    jecfg = jcfg.egnn_config.replace(fused_messages=fused)
+    ref = jegnn.egnn_forward(jparams.point_encoder, jecfg, jnp.asarray(atoms), jnp.asarray(coords))
+    tecfg = tcfg.egnn_config.replace(fused_messages=fused)
+    before = kmsg.egnn_messages.launches
+    mine = tegnn.egnn_forward(model.point_encoder, tecfg, _t(atoms), _t(coords))
+    assert mine.shape == (len(COUNTS), 32) and kmsg.egnn_messages.launches == before
+    _close(mine, ref)
+    assert torch.isfinite(mine).all()  # the natoms >= 1 guard on the all-padding row
+
+
+def test_egnn_forward_gelu_takes_the_dense_path_and_matches_jax(monkeypatch):
+    jparams, jcfg, model, tcfg = _egnn_pair(seed=3)
+    atoms, coords = _points(len(COUNTS), 12, seed=4, counts=COUNTS)
+    jecfg = jcfg.egnn_config.replace(act_fn="GELU")
+    ref = jegnn.egnn_forward(jparams.point_encoder, jecfg, jnp.asarray(atoms), jnp.asarray(coords))
+
+    def no_kernel(*args, **kwargs):
+        raise AssertionError("GELU reached the fused message kernel")
+
+    monkeypatch.setattr(tegnn, "egnn_messages", no_kernel)
+    tecfg = tcfg.egnn_config.replace(act_fn="GELU")
+    _close(tegnn.egnn_forward(model.point_encoder, tecfg, _t(atoms), _t(coords)), ref)
+    with pytest.raises(ValueError, match="act_fn"):
+        tegnn.egnn_forward(model.point_encoder, tecfg.replace(act_fn="ReLU"), _t(atoms), _t(coords))
+
+
+def test_egnn_fused_path_goes_through_the_message_wrapper(monkeypatch):
+    """fused_messages with SiLU calls the K3 wrapper once per layer, with
+    the decomposed first edge layer and w2 in the JAX (in, out) layout."""
+    _, _, model, tcfg = _egnn_pair(seed=5)
+    atoms, coords = _points(3, 8, seed=6, counts=(8, 5, 2))
+    calls = []
+
+    def spy(a, c, d2, w, wd, b1, w2, b2, mm_dtype):
+        calls.append((a.shape, d2.shape, wd.shape, w2.shape, mm_dtype))
+        return plain.egnn_messages(a, c, d2, w, wd, b1, w2, b2, mm_dtype=mm_dtype)
+
+    monkeypatch.setattr(tegnn, "egnn_messages", spy)
+    fused = tegnn.egnn_forward(model.point_encoder, tcfg.egnn_config, _t(atoms), _t(coords))
+    assert calls == [((3, 8, 32), (3, 8, 8), (32,), (32, 32), torch.float32)] * 2
+    dense = tegnn.egnn_forward(
+        model.point_encoder, tcfg.egnn_config.replace(fused_messages=False), _t(atoms), _t(coords)
+    )
+    _close(fused, dense.numpy())
+
+
+def test_egnn_config_follows_the_jax_package():
+    jcfg = jco.CoatiConfig(msg_cutoff_e3nn=4.0, n_hidden_e3nn=64, n_layer_e3gnn=3, residual=True)
+    tcfg = tco.CoatiConfig(msg_cutoff_e3nn=4.0, n_hidden_e3nn=64, n_layer_e3gnn=3, residual=True)
+    for honor in (False, True):  # the cutoff is 5.0 unless honor_msg_cutoff
+        je = jcfg.replace(honor_msg_cutoff=honor).egnn_config
+        te = tcfg.replace(honor_msg_cutoff=honor).egnn_config
+        for field in ("hidden_nf", "n_layers", "message_cutoff", "instance_norm", "torch_emb",
+                      "residual", "act_fn", "dtype", "fused_messages", "in_node_nf"):
+            assert getattr(te, field) == getattr(je, field), field
+    assert te.message_cutoff == 4.0 and tcfg.egnn_config.message_cutoff == 5.0
+
+
+@pytest.mark.parametrize("old_architecture", [False, True])
+def test_encode_points_with_weights_carried_across(old_architecture):
+    """encode_points = EGNN + the point projection, whose LayerNorm is over
+    n_hidden_e3nn (here 32 = embed_dim, as in every published config)."""
+    jparams, jcfg, model, tcfg = _egnn_pair(seed=7, old_architecture=old_architecture)
+    atoms, coords = _points(len(COUNTS), 12, seed=8, counts=COUNTS)
+    ref = jco.encode_points(jparams, jcfg, jnp.asarray(atoms), jnp.asarray(coords))
+    _close(tco.encode_points(model, tcfg, _t(atoms), _t(coords)), ref)
+
+
+def test_encode_points_is_zero_without_a_point_encoder():
+    _, _, model, tcfg = _egnn_pair(seed=9, use_point_encoder=False)
+    assert not hasattr(model, "point_encoder")
+    atoms, coords = _points(3, 6, seed=10, counts=(6, 2, 0))
+    out = tco.encode_points(model, tcfg, _t(atoms), _t(coords))
+    assert out.shape == (3, 32) and not out.any()
+
+
+def test_encode_points_bf16_stays_near_float32():
+    """bf16 compute: d2 and the weights are cast to bf16 before the message
+    function, which computes in float32 with a bf16-rounded inner product.
+    Five roundings deep, the embedding stays within a few percent of the
+    float32 one (cosine > 0.99); this pins the order of casts, not a
+    tolerance against JAX, whose CPU path rounds elsewhere."""
+    _, _, model, tcfg = _egnn_pair(seed=11)
+    atoms, coords = _points(4, 10, seed=12, counts=(10, 8, 5, 3))
+    full = tco.encode_points(model, tcfg, _t(atoms), _t(coords))
+    half = tco.encode_points(model, tcfg.replace(dtype="bfloat16"), _t(atoms), _t(coords))
+    assert half.dtype == torch.bfloat16
+    cos = torch.nn.functional.cosine_similarity(full, half.float(), dim=-1)
+    assert (cos > 0.99).all(), cos

@@ -64,14 +64,17 @@ def test_kernel_wrappers_take_plain_path_on_cpu_without_building(monkeypatch):
         decode_attention,
         decode_attention_quant,
     )
+    from coati_tpu_torch.ops.kernels.egnn_messages import egnn_messages
     from coati_tpu_torch.ops.kernels.flash_attention import flash_causal_attention
+    from coati_tpu_torch.ops.kernels.packed_attention import packed_causal_attention
 
     def no_build(*args, **kwargs):
         raise AssertionError("a CPU call reached the CUDA build")
 
     monkeypatch.setattr(build, "build", no_build)
     monkeypatch.setattr(build, "load", no_build)
-    wrappers = (flash_causal_attention, decode_attention, decode_attention_quant)
+    wrappers = (flash_causal_attention, decode_attention, decode_attention_quant,
+                egnn_messages, packed_causal_attention)
     before = [w.launches for w in wrappers]
     g = torch.Generator().manual_seed(0)
     q = torch.randn(2, 8, 4, 16, generator=g)
@@ -79,7 +82,12 @@ def test_kernel_wrappers_take_plain_path_on_cpu_without_building(monkeypatch):
     decode_attention(q[:, 0], q, q, 5)
     q8, qs = quantize_kv(q)
     decode_attention_quant(q[:, 0], q8, qs, q8, qs, 5)
-    assert [w.launches for w in wrappers] == before == [0, 0, 0]
+    packed_causal_attention(q, q, q)
+    a, pair = q[:, :, 0], q[:, :, 0, :8]  # (2, 8, 16) and (2, 8, 8)
+    for mm_dtype in (torch.float32, torch.bfloat16):
+        egnn_messages(a, a, pair, pair, a[0, 0], a[0, 1], q[0, 0, 0, :, None] * a[0, 2], a[0, 3],
+                      mm_dtype=mm_dtype)
+    assert [w.launches for w in wrappers] == before == [0, 0, 0, 0, 0]
 
 
 def test_kernel_build_module_imports_without_nvcc(monkeypatch):
@@ -91,7 +99,9 @@ def test_kernel_build_module_imports_without_nvcc(monkeypatch):
 
     importlib.reload(build)
     assert calls == []
-    assert build.SOURCES == ("flash_attention", "decode_attention")
+    assert build.SOURCES == (
+        "flash_attention", "decode_attention", "egnn_messages", "packed_attention"
+    )
     for name in build.SOURCES:
         assert (build.CSRC_DIR / f"{name}.cu").exists()
         assert build.library_path(name).parent == build.BUILD_DIR
@@ -106,6 +116,25 @@ def test_kernel_input_checks_refuse_non_cuda_tensors():
     meta = torch.device("meta")
     q = torch.empty(2, 8, 4, 16, device=meta)
     with pytest.raises(ValueError, match="CUDA"):
-        kf._check_inputs(q, q, q)
+        kf.check_qkv(q, q, q)
     with pytest.raises(ValueError, match="CUDA"):
         kd._check_common(q[:, 0], q, q, 3)
+    from coati_tpu_torch.ops.kernels import egnn_messages as ke
+
+    a, pair = torch.empty(2, 8, 16, device=meta), torch.empty(2, 8, 8, device=meta)
+    vec, mat = torch.empty(16, device=meta), torch.empty(16, 16, device=meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        ke._check_inputs(a, a, pair, pair, vec, vec, mat, vec, torch.float32)
+
+
+def test_message_kernel_refuses_inputs_that_require_grad():
+    """The message kernel is forward only: with autograd on, an input that
+    requires grad is refused before any launch."""
+    from coati_tpu_torch.ops.kernels import egnn_messages as ke
+
+    a, w2 = torch.zeros(2, 3, 4), torch.zeros(4, 4, requires_grad=True)
+    with pytest.raises(RuntimeError, match="forward only"):
+        ke._check_no_grad((a, w2))
+    ke._check_no_grad((a, a))
+    with torch.no_grad():
+        ke._check_no_grad((a, w2))

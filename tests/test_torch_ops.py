@@ -22,6 +22,7 @@ from coati_tpu.ops.pallas.decode_attention import (
     decode_attention_pallas_quant,
 )
 from coati_tpu.ops.pallas.flash_attention import flash_causal_attention as jax_flash
+from coati_tpu.ops.pallas.packed_attention import packed_causal_attention as jax_packed
 
 from coati_tpu_torch.models.transformer import quantize_kv
 from coati_tpu_torch.ops import attention as tatt
@@ -30,6 +31,7 @@ from coati_tpu_torch.ops import rotary as trot
 from coati_tpu_torch.ops import sampling as tsamp
 from coati_tpu_torch.ops.kernels import decode_attention as kdecode
 from coati_tpu_torch.ops.kernels import flash_attention as kflash
+from coati_tpu_torch.ops.kernels import packed_attention as kpacked
 
 ATOL, RTOL = 3e-5, 1e-4
 HIGHEST = jax.lax.Precision.HIGHEST
@@ -112,6 +114,39 @@ def test_flash_cpu_path_matches_pallas_kernel(t):
     before = kflash.flash_causal_attention.launches
     _close(kflash.flash_causal_attention(_t(q), _t(k), _t(v)), ref)
     assert kflash.flash_causal_attention.launches == before
+
+
+@pytest.mark.parametrize("t", [3, 37, 128])
+def test_packed_cpu_path_matches_pallas_kernel(t):
+    """The port's K5f wrapper (plain path on a CPU tensor) against the TPU
+    kernel, which selects interpret mode itself on the CPU, at H*Dh = 128
+    (which the TPU kernel needs)."""
+    q, k, v = (_normal(i, 2, t, 8, 16) for i in (24, 25, 26))
+    ref = jax_packed(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    before = kpacked.packed_causal_attention.launches
+    mine = kpacked.packed_causal_attention(_t(q), _t(k), _t(v))
+    _close(mine, ref)
+    _close(mine, kflash.flash_causal_attention(_t(q), _t(k), _t(v)), atol=0, rtol=0)
+    assert kpacked.packed_causal_attention.launches == before
+
+
+def test_packed_refuses_long_sequences_and_picks_head_groups():
+    q = _t(_normal(27, 1, 129, 8, 16))
+    with pytest.raises(ValueError, match="T <= 128, got T=129"):
+        kpacked.packed_causal_attention(q, q, q)
+    with pytest.raises(ValueError, match="T=129"):
+        jax_packed(jnp.asarray(q.numpy()), jnp.asarray(q.numpy()), jnp.asarray(q.numpy()))
+    meta = torch.empty(2, 8, 4, 16, device="meta")
+    with pytest.raises(ValueError, match="packed_causal_attention: q, k, v must lie on one CUDA"):
+        kflash.check_qkv(meta, meta, meta, "packed_causal_attention")
+    # heads per block: a divisor of H whose staged K and V stay under 28 KB
+    assert kpacked.head_group(96, 16, 16) == 2
+    assert kpacked.head_group(128, 16, 16) == 1
+    assert kpacked.head_group(3, 16, 16) == 16
+    assert kpacked.head_group(128, 2, 64) == 1  # one head is above it: still one
+    for t, h, dh in ((96, 16, 16), (37, 4, 32), (128, 12, 16)):
+        g = kpacked.head_group(t, h, dh)
+        assert h % g == 0 and (g == 1 or g * 2 * t * (dh + 1) * 4 <= kpacked.GROUP_BYTES)
 
 
 def test_flash_cpu_path_takes_strided_views():

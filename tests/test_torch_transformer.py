@@ -67,18 +67,59 @@ def test_forward_hidden_and_encode_match_jax(n_layer, n_embd, norm_embed):
 
 
 def test_packed_prefill_kernel_raises_and_bad_fields_are_rejected():
-    _, _, model, tcfg = _pair(2, 64)
+    """prefill_kernel="packed" is the short-sequence kernel: it refuses
+    T > 128 and a single head with coati_tpu's message, in the full forward
+    and in the prefill; unknown field values are rejected."""
+    _, _, model, tcfg = _pair(2, 64, n_seq=160)
+    packed = tcfg.replace(prefill_kernel="packed")
+    long = torch.tensor(_tokens(2, 129, tcfg.n_tok))
+    with pytest.raises(ValueError, match="needs T <= 128 and n_head > 1, got T=129"):
+        ttr.forward_hidden(model, packed, long)
+    with pytest.raises(ValueError, match="needs T <= 128 and n_head > 1, got T=129"):
+        ttr.prefill(model, packed, long)
     toks = torch.tensor(_tokens(2, 8, tcfg.n_tok))
-    with pytest.raises(NotImplementedError, match="K5"):
-        ttr.forward_hidden(model, tcfg.replace(prefill_kernel="packed"), toks)
+    with pytest.raises(ValueError, match="n_head=1"):
+        ttr.forward_hidden(model, packed.replace(n_head=1), toks)
     with pytest.raises(ValueError):
         ttr.forward_hidden(model, tcfg.replace(prefill_kernel="fast"), toks)
     with pytest.raises(ValueError):
         ttr.make_empty_cache(tcfg.replace(kv_dtype="int4"), 2)
-    # every TPU-era choice routes to the port's own kernel path
+    # every other TPU-era choice routes to the port's flash kernel path
     ref = ttr.forward_hidden(model, tcfg, toks)
     for choice in ("xla", "pallas"):
         _close(ttr.forward_hidden(model, tcfg.replace(prefill_kernel=choice), toks), ref.numpy(), 0, 0)
+
+
+@pytest.mark.parametrize("t", [3, 37, 128])
+def test_packed_prefill_kernel_matches_auto_and_jax_packed(t, monkeypatch):
+    """Under prefill_kernel="packed" the forward, the encode and the prefill
+    go through the K5f wrapper (and not K2's) and, on the CPU, equal the
+    "auto" setting; the forward also matches coati_tpu under its packed
+    Pallas kernel, which runs in interpret mode on the CPU (128 wide, which
+    that kernel needs)."""
+    jparams, jcfg, model, tcfg = _pair(2, 128, n_seq=128, seed=6)
+    toks = _tokens(2, t, tcfg.n_tok, seed=7)
+    inj = np.random.default_rng(8).normal(size=(2, 128)).astype(np.float32)
+    packed = tcfg.replace(prefill_kernel="packed")
+    auto = ttr.forward_hidden(model, tcfg, torch.tensor(toks), torch.tensor(inj), UNK)
+    auto_h, auto_cache = ttr.prefill(model, tcfg, torch.tensor(toks), torch.tensor(inj), UNK)
+
+    calls = []
+    wrapper = ttr.packed_causal_attention
+    monkeypatch.setattr(ttr, "packed_causal_attention", lambda *a: calls.append(1) or wrapper(*a))
+    monkeypatch.setattr(ttr, "flash_causal_attention", None)  # must not be reached
+    mine = ttr.forward_hidden(model, packed, torch.tensor(toks), torch.tensor(inj), UNK)
+    h, cache = ttr.prefill(model, packed, torch.tensor(toks), torch.tensor(inj), UNK)
+    enc = ttr.encode(model, packed, torch.tensor(toks), STOP)
+    assert len(calls) == 3 * tcfg.n_layer
+    _close(mine, auto.numpy(), 0, 0)
+    _close(h, auto_h.numpy(), 0, 0)
+    _close(cache.data, auto_cache.data.numpy(), 0, 0)
+    ref = jtr.forward_hidden(
+        jparams, jcfg.replace(prefill_kernel="packed"), jnp.asarray(toks), jnp.asarray(inj), UNK
+    )
+    _close(mine, ref)
+    _close(enc, jtr.encode(jparams, jcfg, jnp.asarray(toks), STOP))
 
 
 @pytest.mark.parametrize("kv_dtype", ["compute", "int8"])
