@@ -33,7 +33,21 @@ Phases, in order; any failure ends the run with a non-zero exit:
     packed: the total_len 96 production round trip again under
     prefill_kernel="packed", which sends every full-sequence attention to
     the short-sequence kernel.
- 4. report: the card's name and power limit, one `kernels` JSON line, and
+    train: train_autoencoder with the grande recipe (16 x 256 transformer,
+    5 x 256 EGNN, bf16 over float32 masters, batch 160, n_seq 80, remat of
+    the transformer blocks) on the fixture's molecules, from a seeded fresh
+    model: 3 warm-up and 20 timed steps, then a few more steps split into
+    forward, backward and optimizer by CUDA events and traced by
+    torch.profiler. p_randsmiles is 0 and canonicalize False, because the
+    port has no chemistry modules yet. Every loss must be finite, the
+    autoregressive loss must fall, and the backward kernels must launch.
+ 4. train_fp32_vs_plain: one float32 training step at full width (4
+    transformer layers, 2 EGNN layers, batch 64) from the same weights,
+    batch and clip-token choice, through the kernels and through their plain
+    versions: the loss and every parameter's gradient must agree. Once more
+    at T 200, batch 32, where K2 carries the trunk and its backward replays
+    the plain attention.
+ 5. report: the card's name and power limit, one `kernels` JSON line, and
     as the last line {"ok": true, "device": {...}}.
 
 Every number printed is measured in this run, on this card, except the
@@ -193,16 +207,17 @@ def _attention_case(name, b, t, h, dh, dtype, gen):
     return case
 
 
-def _fixture_geometry(rows=None):
+def _fixture_geometry(rows=None, cutoff=5.0):
     """(d2, w, atom counts) of the fixture's molecules on the card, as
-    egnn_forward computes them at the document's cutoff of 5 Angstrom."""
+    egnn_forward computes them at a message cutoff in Angstrom: 5 in the
+    trained document, 12 in the grande training recipe."""
     from coati_tpu_torch.data import load_points_fixture
     from coati_tpu_torch.models.egnn import pair_geometry
 
     _, atoms, coords = load_points_fixture()
     atoms, coords = atoms[:rows], coords[:rows]
     mask = torch.as_tensor(atoms > 0, device="cuda").float()
-    d2, w = pair_geometry(mask, torch.as_tensor(coords, device="cuda"), 5.0)
+    d2, w = pair_geometry(mask, torch.as_tensor(coords, device="cuda"), cutoff)
     return d2, w, (atoms > 0).sum(1)
 
 
@@ -259,6 +274,92 @@ def _messages_case(d2, w, hm, mm_dtype, gen, label, timed=True):
         case["ms"] = time_ms(lambda: egnn_messages(*args, mm_dtype=mm_dtype))
         case["plain_ms"] = time_ms(
             lambda: plain.egnn_messages(*args, mm_dtype=mm_dtype), n=3, warmup=1
+        )
+    return case
+
+
+def _attention_bwd_case(b, t, h, dh, dtype, gen):
+    """K5b `packed_causal_attention_backward` against
+    causal_attention_backward, on strided q, k, v and a contiguous g."""
+    from coati_tpu_torch.ops.attention import causal_attention_backward
+    from coati_tpu_torch.ops.kernels.packed_attention import packed_causal_attention_backward
+
+    qkv = torch.randn(b, t, 3 * h * dh, generator=gen, device="cuda").to(dtype)
+    q, k, v = (x.view(b, t, h, dh) for x in qkv.split(h * dh, dim=-1))
+    g = torch.randn(b, t, h, dh, generator=gen, device="cuda").to(dtype)
+    outs = packed_causal_attention_backward(q, k, v, g)
+    refs = causal_attention_backward(q, k, v, g)
+    torch.cuda.synchronize()
+    # float32: the order of sums of up to T terms, on gradients that reach
+    # 6-7 here; bf16: 2 ulps of each output's scale, as for the forward
+    errs = [float((o.float() - r.float()).abs().max()) for o, r in zip(outs, refs)]
+    tols = [tolerance(r, dtype, 2e-5) for r in refs]
+    elt = torch.finfo(dtype).bits // 8
+    # five products of 2 * Dh operations per causal pair: the scores, dP, dq, dk, dv
+    bound, by = bound_ms(7 * b * t * h * dh * elt, 10 * b * h * (t * (t + 1) // 2) * dh, dtype)
+    qt, kt, vt, gt = (x.transpose(1, 2).detach() for x in (q, k, v, g))
+    for x in (qt, kt, vt):
+        x.requires_grad_(True)
+    sdpa = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    return {
+        "kernel": "packed_causal_attention_backward", "shape": [b, t, h, dh],
+        "dtype": str(dtype)[6:], "max_abs_err": max(errs), "max_abs_err_dq_dk_dv": errs,
+        "tol_dq_dk_dv": tols, "ok": all(e <= t_ for e, t_ in zip(errs, tols)),
+        "ms": time_ms(lambda: packed_causal_attention_backward(q, k, v, g)),
+        "plain_ms": time_ms(lambda: causal_attention_backward(q, k, v, g)),
+        "bound_ms": bound, "bound_by": by,
+        # the library's backward alone, on a retained graph
+        "library_ms": time_ms(
+            lambda: torch.autograd.grad(sdpa, (qt, kt, vt), gt, retain_graph=True)
+        ),
+    }
+
+
+def _messages_bwd_case(d2, w, hm, mm_dtype, gen, label, timed=True):
+    """K4 `egnn_messages_backward` against its plain version on the pair
+    geometry (d2, w), inputs as in _messages_case and a random cotangent."""
+    from coati_tpu_torch.ops import egnn_messages as plain
+    from coati_tpu_torch.ops.kernels.egnn_messages import egnn_messages_backward
+
+    b, n, _ = d2.shape
+
+    def rand(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=gen, device="cuda")
+
+    a, c = rand(b, n, hm, scale=0.5), rand(b, n, hm, scale=0.5)
+    wd, b1, b2 = rand(hm, scale=0.1), rand(hm, scale=0.1), rand(hm, scale=0.1)
+    w2 = rand(hm, hm, scale=hm**-0.5)
+    args = (a, c, d2, w, wd, b1, w2, b2, rand(b, n, hm))
+    outs = egnn_messages_backward(*args, mm_dtype=mm_dtype)
+    refs = plain.egnn_messages_backward(*args, mm_dtype=mm_dtype)
+    torch.cuda.synchronize()
+    names = ("da", "dc", "dwd", "db1", "dw2", "db2")
+    errs = {k: float((o - r).abs().max()) for k, o, r in zip(names, outs, refs)}
+    scales = {k: max(1.0, float(r.abs().max())) for k, r in zip(names, refs)}
+    # float32: the order of the sums only, by atomics for all but da; da and
+    # dc sum up to N pairs, the parameter gradients every live pair (2e5 on
+    # the fixture), so each is held relative to its own largest entry. bf16
+    # products: as for K3, a last-bit difference of a SiLU now and then
+    # rounds an e1 or a dz2 to the neighbouring bf16 value.
+    rel = 1e-5 if mm_dtype == torch.float32 else 1e-3
+    pairs = int((w != 0).sum())
+    dead_i, dead_j = w.abs().sum(-1) == 0, w.abs().sum(-2) == 0
+    zero = bool((outs[0][dead_i] == 0).all()) and bool((outs[1][dead_j] == 0).all())
+    n_bytes = 4 * (5 * b * n * hm + 2 * b * n * n + 2 * hm * hm + 6 * hm)
+    bound, by = bound_ms(n_bytes, pairs * (6 * hm * hm + 24 * hm), mm_dtype)
+    case = {
+        "kernel": "egnn_messages_backward", "case": label, "shape": [b, n, hm],
+        "mm_dtype": str(mm_dtype)[6:], "live_pairs": pairs, "dense_pairs": b * n * n,
+        "dead_rows_and_columns_zero": zero,
+        "max_abs_err": max(errs.values()), "max_abs_err_by_output": errs,
+        "tol_by_output": {k: rel * scales[k] for k in names},
+        "ok": zero and all(errs[k] <= rel * scales[k] for k in names),
+        "bound_ms": bound, "bound_by": by, "library_ms": None,
+    }
+    if timed:
+        case["ms"] = time_ms(lambda: egnn_messages_backward(*args, mm_dtype=mm_dtype))
+        case["plain_ms"] = time_ms(
+            lambda: plain.egnn_messages_backward(*args, mm_dtype=mm_dtype), n=3, warmup=1
         )
     return case
 
@@ -331,12 +432,33 @@ def phase_kernels():
         _attention_case(k5f, 3, 37, 4, 32, f32, gen),
         _attention_case(k5f, 2, 70, 2, 64, bf16, gen),
     ]
-    # K3: ragged molecules with a lone atom and an all-padding row, small odd
-    # shapes, then the fixture's 1,024 molecules (timed; the main path's shape)
+    # K5b: the trainer's batch at its widest, the inference batch at the
+    # widths K5f serves, and ragged shapes at the other head sizes
+    for dtype in (bf16, f32):
+        cases.append(_attention_bwd_case(160, 80, 16, 16, dtype, gen))
+        cases.append(_attention_bwd_case(1024, 96, 16, 16, dtype, gen))
+        cases.append(_attention_bwd_case(1024, 128, 16, 16, dtype, gen))
+    cases.append(_attention_bwd_case(5, 17, 4, 32, f32, gen))
+    cases.append(_attention_bwd_case(5, 17, 4, 32, bf16, gen))
+    cases.append(_attention_bwd_case(2, 70, 2, 64, bf16, gen))
+    # K3 and K4: ragged molecules with a lone atom and an all-padding row,
+    # small odd shapes, then the fixture's molecules (timed; the main paths'
+    # shapes: all 1,024 at the document's cutoff for K3, the trainer's batch
+    # of 160 at the document's and at the recipe's cutoff for both)
     ragged = [int(x) for x in torch.randint(2, 65, (64,), generator=gen, device="cuda")]
     ragged[:3] = [64, 1, 0]
     for mm in (f32, bf16):
-        cases.append(_messages_case(*_random_geometry(ragged, 64, gen), 256, mm, gen, "ragged"))
+        geometry = _random_geometry(ragged, 64, gen)
+        cases.append(_messages_case(*geometry, 256, mm, gen, "ragged"))
+        cases.append(_messages_bwd_case(*geometry, 256, mm, gen, "ragged"))
+    cases.append(_messages_bwd_case(*_random_geometry([11, 5, 0], 11, gen), 32, f32, gen, "odd"))
+    cases.append(_messages_bwd_case(*_random_geometry([11, 7, 3], 11, gen), 128, bf16, gen, "odd"))
+    cases.append(_messages_bwd_case(*_random_geometry([9, 130], 130, gen), 20, f32, gen, "odd"))
+    for cutoff, label in ((5.0, "fixture160"), (12.0, "fixture160_cutoff12")):
+        d2, w, _ = _fixture_geometry(160, cutoff)
+        for mm in (f32, bf16):
+            cases.append(_messages_case(d2, w, 256, mm, gen, label))
+            cases.append(_messages_bwd_case(d2, w, 256, mm, gen, label))
     cases.append(_messages_case(*_random_geometry([11, 5, 0], 11, gen), 32, f32, gen, "odd"))
     cases.append(_messages_case(*_random_geometry([11, 7, 3], 11, gen), 128, bf16, gen, "odd"))
     cases.append(_messages_case(*_random_geometry([9, 130], 130, gen), 20, f32, gen, "odd"))
@@ -362,6 +484,9 @@ def phase_kernels():
                                    "pos": 95},
         "egnn_messages": {"case": "fixture", "mm_dtype": "float32"},
         "packed_causal_attention": {"shape": [1024, 96, 16, 16], "dtype": "bfloat16"},
+        # the trainer's shapes: bf16, batch 160, the recipe's cutoff
+        "egnn_messages_backward": {"case": "fixture160_cutoff12", "mm_dtype": "bfloat16"},
+        "packed_causal_attention_backward": {"shape": [160, 80, 16, 16], "dtype": "bfloat16"},
     }
     chosen = {}
     for c in cases:
@@ -373,7 +498,9 @@ def phase_kernels():
 @contextlib.contextmanager
 def plain_versions():
     """Route the model to the kernels' plain versions, for comparison:
-    swaps the kernel wrappers that the transformer and EGNN modules call."""
+    swaps the kernel wrappers that the transformer and EGNN modules call.
+    The plain forwards are plain tensor code, so a backward through them is
+    PyTorch's own autograd and reaches neither K4, K5b nor K2's replay."""
     from coati_tpu_torch.models import egnn, transformer
     from coati_tpu_torch.ops import attention as plain
     from coati_tpu_torch.ops import egnn_messages as plain_messages
@@ -409,13 +536,23 @@ def _wrappers():
                                     packed_causal_attention)}
 
 
+# the backward kernels count on the forward wrapper they belong to
+BACKWARD_OF = {"egnn_messages_backward": "egnn_messages",
+               "packed_causal_attention_backward": "packed_causal_attention"}
+
+
 def _counts():
-    return {name: w.launches for name, w in _wrappers().items()}
+    wrappers = _wrappers()
+    counts = {name: w.launches for name, w in wrappers.items()}
+    counts.update({name: wrappers[fwd].bwd_launches for name, fwd in BACKWARD_OF.items()})
+    return counts
 
 
 def _zero_counts():
     for w in _wrappers().values():
         w.launches = 0
+    for fwd in BACKWARD_OF.values():
+        _wrappers()[fwd].bwd_launches = 0
 
 
 def _tokens(tok, smiles, width):
@@ -648,7 +785,225 @@ def phase_packed(model, tok, flash_run):
     return _counts()
 
 
-def _profile(fn, label, wall_s):
+class _StampedDataset:
+    """A training dataset that notes the host clock each time the trainer
+    takes a batch, and keeps the transformed batches. With the trainer's
+    deferred metric reads, the time between two takes is one whole step in
+    steady state: the wait for the step before, this step's launches, and
+    the next batch's host transform."""
+
+    def __init__(self, dataset):
+        self.dataset = dataset
+        self.summary = dataset.summary
+        self.stamps, self.batches = [], []
+
+    def get_data_pipe(self, **kw):
+        for batch in self.dataset.get_data_pipe(**kw):
+            self.stamps.append(time.perf_counter())
+            self.batches.append(batch)
+            yield batch
+
+
+def _train_step(config, model):
+    """(the trainer's step over `model` with a new optimizer, tokenizer)."""
+    from coati_tpu_torch.tokenizers import get_vocab
+    from coati_tpu_torch.tokenizers.trie_tokenizer import TrieTokenizer
+    from coati_tpu_torch.training import train
+
+    tok = TrieTokenizer(n_seq=config.n_seq, **get_vocab(config.tokenizer_vocab))
+    model_cfg = train.model_config_from_train_config(config, tok.n_token)
+    if model is None:
+        model = train.fresh_model(model_cfg, torch.device("cuda"), seed=0)
+    step = train.make_train_step(
+        model, model_cfg, train.make_optimizer(config, model),
+        stop_token=tok.stop_token, unk_token=tok.unk_token,
+        p_clip_emb_smi=config.p_clip_emb_smi,
+        token_entropy_unit=float(np.log2(tok.n_token)), do_clip=config.do_clip,
+    )
+    return step, tok
+
+
+def phase_train():
+    """The training path: train_autoencoder with the grande recipe on the
+    card. Returns the launch counts of the path."""
+    from coati_tpu_torch.data import fixture_dataset
+    from coati_tpu_torch.training import train
+    from coati_tpu_torch.training.config import grande_config
+
+    warm, timed = 3, 20
+    steps = warm + timed
+    # the recipe in bf16 as it is, but for the permuted SMILES (p_randsmiles
+    # 0.3), which need the chemistry modules the port does not have yet
+    config = grande_config(dtype="bfloat16", n_epochs=1, p_randsmiles=0.0)
+    # one batch more than is trained on: the loop takes it before it stops
+    data = _StampedDataset(fixture_dataset((steps + 1) * config.batch_size))
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()  # the path starts here
+    start = time.perf_counter()
+    model, results = train.train_autoencoder(
+        config, data, max_steps_per_epoch=steps, canonicalize=False, seed=0)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - start
+    counts = _counts()  # and ends here
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    history = results["history"]
+    check(len(history) == steps and all(h[0] == "train" for h in history),
+          f"train: {len(history)} steps in the history, not {steps}")
+    check(next(model.parameters()).device.type == "cuda", "train: the model is not on the card")
+    losses = np.array([h[3:] for h in history], np.float64)  # loss, ar_loss, clip_loss
+    check(bool(np.isfinite(losses).all()), "train: a loss is not finite")
+    check(losses[-1, 1] < losses[0, 1],
+          f"train: ar_loss went from {losses[0, 1]} to {losses[-1, 1]}")
+    per_step = {name: c / steps for name, c in counts.items()}
+    n_x, n_e = config.n_layer_xformer, config.n_layer_e3gnn
+    # encode and decoder trunk, each recomputed once under xformer_remat;
+    # the EGNN is not rematerialized
+    expected = {"packed_causal_attention": 4 * n_x, "packed_causal_attention_backward": 2 * n_x,
+                "egnn_messages": n_e, "egnn_messages_backward": n_e,
+                "flash_causal_attention": 0, "decode_attention": 0, "decode_attention_quant": 0}
+    check(per_step == expected, f"train: launches a step {per_step}, expected {expected}")
+    intervals = np.diff(data.stamps)[warm:]
+    check(len(intervals) == timed, f"train: {len(intervals)} timed steps, not {timed}")
+    step_s = float(np.median(intervals))
+    widths = sorted({(b["tokens"].shape[1], b["raw_tokens"].shape[1], b["atoms"].shape[1])
+                     for b in data.batches[:steps]})
+    emit({"phase": "train", "recipe": "grande", "dtype": config.dtype,
+          "batch": config.batch_size, "n_seq": config.n_seq,
+          "xformer": [n_x, config.n_hidden_xformer, config.n_head],
+          "egnn": [n_e, config.n_hidden_e3nn, config.msg_cutoff_e3nn],
+          "xformer_remat": config.xformer_remat, "egnn_remat": config.egnn_remat,
+          "p_randsmiles": config.p_randsmiles, "canonicalize": False,
+          "parameters": sum(p.numel() for p in model.parameters()),
+          "warmup_steps": warm, "timed_steps": timed,
+          "step_seconds": step_s, "step_seconds_all": [float(x) for x in np.diff(data.stamps)],
+          "mol_per_s": config.batch_size / step_s,
+          "trainer_step_seconds_all": results["train_step_seconds"],
+          "train_autoencoder_seconds": total_s,
+          "batch_widths_tokens_raw_atoms": widths,
+          "loss_first_last": [losses[0, 0], losses[-1, 0]],
+          "ar_loss_first_last": [losses[0, 1], losses[-1, 1]],
+          "clip_loss_first_last": [losses[0, 2], losses[-1, 2]],
+          "ar_loss_all": [float(x) for x in losses[:, 1]],
+          "launches_per_step": per_step, "peak_mem_gb": peak_gb})
+
+    # the split of a step, outside the counted window: the same model and
+    # the last batches again, each part between two CUDA events
+    step, _ = _train_step(config, model)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batches = [train.batch_to_device(b, torch.device("cuda")) for b in data.batches[-6:]]
+    parts, host_parts = [], []
+    for batch in batches:  # the first is warm-up: it makes the optimizer's state
+        torch.cuda.synchronize()
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        host = [time.perf_counter()]
+        marks[0].record()
+        loss, _, _ = step.losses(gen, batch)
+        marks[1].record()
+        host.append(time.perf_counter())
+        loss.backward()
+        marks[2].record()
+        host.append(time.perf_counter())
+        step.update()
+        marks[3].record()
+        host.append(time.perf_counter())
+        torch.cuda.synchronize()
+        parts.append([a.elapsed_time(b) / 1e3 for a, b in zip(marks, marks[1:])])
+        host_parts.append([b - a for a, b in zip(host, host[1:])])
+    fwd, bwd, opt = (float(x) for x in np.median(np.array(parts[1:]), axis=0))
+    # between the events the card also waits for the host; host_launch_s is
+    # the time the host took to launch each part, without waiting for the card
+    emit({"phase": "train_split", "steps": len(parts) - 1,
+          "forward_s": fwd, "backward_s": bwd, "optimizer_s": opt,
+          "shares": {"forward": fwd / (fwd + bwd + opt), "backward": bwd / (fwd + bwd + opt),
+                     "optimizer": opt / (fwd + bwd + opt)},
+          "host_launch_s": [float(x) for x in np.median(np.array(host_parts[1:]), axis=0)],
+          "seconds_all": parts})
+    _profile(lambda: [step(gen, b) for b in batches[1:4]], "train_step_x3", 3 * step_s, top=24)
+    return counts
+
+
+def _step_gradients(config, batch, pick, plain: bool):
+    """(loss, {parameter name: gradient}, launch counts) of one training
+    step's backward from a fresh seeded model, through the kernels or, with
+    `plain`, through their plain versions."""
+    step, _ = _train_step(config, None)
+    _zero_counts()
+    with plain_versions() if plain else contextlib.nullcontext():
+        loss, _, _ = step.losses(None, batch, pick_point=pick)
+        loss.backward()
+    torch.cuda.synchronize()
+    named = list(step.model.named_parameters())
+    # the EGNN's coordinate MLPs are in the state dict and in no forward
+    unused = [name for name, p in named if p.grad is None]
+    check(all(".coord_mlp." in name for name in unused), f"no gradient for {unused}")
+    grads = {name: p.grad for name, p in named if p.grad is not None}
+    return float(loss.detach()), grads, _counts()
+
+
+def phase_train_fp32_vs_plain():
+    """One float32 training step through the kernels against the same step
+    through their plain versions: the packed route (K5f, K5b, K3, K4) at the
+    recipe's n_seq, and the flash route (K2 and its replayed backward) at
+    T 200."""
+    import random
+
+    from coati_tpu_torch.data import fixture_dataset
+    from coati_tpu_torch.data.xform import clip_ar_xform
+    from coati_tpu_torch.training import train
+    from coati_tpu_torch.training.config import grande_config
+
+    def one(label, batch_size, n_seq, pad_to):
+        config = grande_config(dtype="float32", n_layer_xformer=4, n_layer_e3gnn=2,
+                               batch_size=batch_size, n_seq=n_seq, p_randsmiles=0.0)
+        _, tok = _train_step(config, None)
+        pipe = fixture_dataset(batch_size).get_data_pipe(
+            batch_size=batch_size,
+            xform_routine=lambda b: clip_ar_xform(
+                b, tokenizer=tok, p_dataset=config.p_dataset, p_formula=config.p_formula,
+                p_clip=config.p_clip, p_clip_cut=config.p_clip_cut, canonicalize=False,
+                rng=random.Random(0)))
+        host = next(iter(pipe))
+        if pad_to:  # widen the token arrays with padding, which the loss ignores
+            for key, fill in (("tokens", 0), ("raw_tokens", 0), ("y_next", -1)):
+                extra = pad_to - host[key].shape[1]
+                host[key] = np.pad(host[key], ((0, 0), (0, extra)), constant_values=fill)
+        batch = train.batch_to_device(host, torch.device("cuda"))
+        pick = torch.rand(batch_size, generator=torch.Generator().manual_seed(0)) > 0.5
+        plain_loss, plain_grads, plain_counts = _step_gradients(config, batch, pick, plain=True)
+        check(sum(plain_counts.values()) == 0, f"{label}: the plain step launched a kernel")
+        loss, grads, counts = _step_gradients(config, batch, pick, plain=False)
+        check(grads.keys() == plain_grads.keys(), f"{label}: the two steps reach other parameters")
+        worst, worst_name = 0.0, ""
+        for name, g in grads.items():
+            ref = plain_grads[name]
+            # the order of sums only, through 4 + 2 layers and two passes
+            tol = 1e-4 * max(1.0, float(ref.abs().max()))
+            err = float((g - ref).abs().max())
+            check(err <= tol, f"{label}: gradient of {name} differs by {err} (tolerance {tol})")
+            if err / tol > worst:
+                worst, worst_name = err / tol, name
+        rel = abs(loss - plain_loss) / abs(plain_loss)
+        check(rel <= 1e-5, f"{label}: loss {loss} against {plain_loss} through the plain versions")
+        emit({"phase": "train_fp32_vs_plain", "route": label, "batch": batch_size,
+              "T": int(batch["tokens"].shape[1]), "atoms": int(batch["atoms"].shape[1]),
+              "layers_xformer_egnn": [4, 2], "loss": loss, "plain_loss": plain_loss,
+              "loss_rel_diff": rel, "parameters_compared": len(grads),
+              "worst_gradient_err_over_tol": worst, "worst_parameter": worst_name,
+              "launches": counts})
+        return counts
+
+    counts = one("packed", 64, 80, None)
+    check(counts["packed_causal_attention_backward"] == 8 and counts["egnn_messages_backward"] == 2
+          and counts["flash_causal_attention"] == 0,
+          f"packed route: launches {counts}")
+    counts = one("flash_T200", 32, 200, 200)
+    check(counts["flash_causal_attention"] == 16 and counts["packed_causal_attention"] == 0
+          and counts["packed_causal_attention_backward"] == 0,
+          f"flash route: launches {counts}")
+
+
+def _profile(fn, label, wall_s, top=12):
     """Device time by kernel over one call of fn (torch.profiler), and the
     card's idle share against the call's unprofiled time."""
     from torch.autograd import DeviceType
@@ -657,13 +1012,18 @@ def _profile(fn, label, wall_s):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    # kernels only: an aten op's device time repeats that of its kernels
+    # kernels only: an aten op's device time repeats that of its kernels, and
+    # a user annotation on the device timeline (the optimizer's step) spans
+    # the gaps between them
     rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith("Optimizer.")]
     busy_s = sum(t for _, t, _ in rows) / 1e6
-    top = sorted(rows, key=lambda r: -r[1])[:12]
+    top = sorted(rows, key=lambda r: -r[1])[:top]
     emit({"phase": "profile", "shape": label, "device_busy_s": busy_s,
           "call_s": wall_s, "idle_share": 1 - busy_s / wall_s,
+          "kernel_launches": sum(c for _, _, c in rows),
           "top_kernels": [{"name": n[:90], "ms": t / 1e3, "calls": c} for n, t, c in top]})
 
 
@@ -693,6 +1053,11 @@ def main() -> int:
     lap("points")
     paths["packed"] = phase_packed(model, tok, flash_run)
     lap("packed")
+    del model
+    paths["train"] = phase_train()
+    lap("train")
+    phase_train_fp32_vs_plain()
+    lap("train_fp32_vs_plain")
     emit({"phase": "launches", "by_path": paths})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -706,6 +1071,9 @@ def main() -> int:
         "decode_attention_quant": ("decode_attention.cu", "decode_attention.py:205"),
         "egnn_messages": ("egnn_messages.cu", "egnn_messages.py:205"),
         "packed_causal_attention": ("packed_attention.cu", "packed_attention.py:142"),
+        "egnn_messages_backward": ("egnn_messages_bwd.cu", "egnn_messages.py:329"),
+        "packed_causal_attention_backward": ("packed_attention_bwd.cu",
+                                             "packed_attention.py:282"),
     }
     kernels = []
     for name, (source, replaces) in sources.items():

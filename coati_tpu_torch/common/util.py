@@ -2,7 +2,23 @@
 
 from __future__ import annotations
 
+import datetime
+import os
+from datetime import timezone
+
 import torch
+
+
+def utc_epoch_now() -> float:
+    return datetime.datetime.now().replace(tzinfo=timezone.utc).timestamp()
+
+
+def makedir(path: str, isfile: bool = False) -> None:
+    """mkdir -p; if isfile, create the parent directory of the given file path."""
+    if isfile:
+        path = os.path.dirname(path)
+    if path != "":
+        os.makedirs(path, exist_ok=True)
 
 
 def colored_background(r: int, g: int, b: int, text: str) -> str:

@@ -1,19 +1,21 @@
 """COATI composite model: SMILES transformer + point encoder + CLIP heads.
 
-PyTorch counterpart of coati_tpu/models/coati.py, inference half. The
-parameters live in `CoatiModel`, an nn.Module whose state-dict keys are
-those of the reference e3gnn_smiles_clip_e2e ('xformer.*',
-'point_encoder.*', 'smiles_to_clip.*', 'point_to_clip.*',
-'point_clip_to_special_tokens.*', 'fp_networks.*'), so a reference state
-dict loads with load_state_dict(strict=True). The point encoder runs through
-models/egnn.py; the training forward and the losses are a later slice.
+PyTorch counterpart of coati_tpu/models/coati.py: the encoders, the
+training forward and the losses. The parameters live in `CoatiModel`, an
+nn.Module whose state-dict keys are those of the reference
+e3gnn_smiles_clip_e2e ('xformer.*', 'point_encoder.*', 'smiles_to_clip.*',
+'point_to_clip.*', 'point_clip_to_special_tokens.*', 'fp_networks.*'), so a
+reference state dict loads with load_state_dict(strict=True). The point
+encoder runs through models/egnn.py. A fresh `CoatiModel(cfg)` takes
+PyTorch's default initialisation of nn.Linear, nn.Embedding and
+nn.LayerNorm, which is what coati_tpu's init_coati imitates.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -24,6 +26,7 @@ from coati_tpu_torch.models.transformer import (
     SmilesTransformer,
     TransformerConfig,
     forward_hidden,
+    forward_logits,
     stop_token_hidden,
 )
 from coati_tpu_torch.ops.layers import cast_floats, layer_norm, linear
@@ -213,11 +216,12 @@ def encode_points(
 
 
 def clip_to_special_token(params: CoatiModel, h_clip: torch.Tensor) -> torch.Tensor:
-    """SiLU -> Linear token MLP, identity without token_mlp."""
+    """SiLU -> Linear token MLP in h_clip's dtype, identity without
+    token_mlp."""
     mlp = getattr(params, "point_clip_to_special_tokens", None)
     if mlp is None:
         return h_clip
-    lin = mlp[1]
+    lin = cast_floats(mlp, h_clip.dtype)[1]
     return linear(F.silu(h_clip), lin.weight, lin.bias)
 
 
@@ -227,7 +231,148 @@ def fp_predictions(params: CoatiModel, cfg: CoatiConfig, clip_token: torch.Tenso
     heads = getattr(params, "fp_networks", None)
     if not heads:
         return {}
+    heads = cast_floats(heads, clip_token.dtype)
     return {name: linear(clip_token, head.weight, head.bias) for name, head in heads.items()}
+
+
+def fp_loss_fn(fp_preds: dict, fp_targets: dict) -> torch.Tensor:
+    """Mean BCE-with-logits over all fingerprint heads (binary bits)."""
+    total = None
+    for name, logits in fp_preds.items():
+        y = fp_targets[name].float()
+        loss = F.binary_cross_entropy_with_logits(logits.float(), y)
+        total = loss if total is None else total + loss
+    return total if total is not None else torch.zeros(())
+
+
+# --------------------------------------------------------------- losses
+
+
+def cross_entropy_ignore(
+    logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = -1
+) -> torch.Tensor:
+    """Mean cross-entropy over labels != ignore_index, in float32; zero
+    when every label is ignored."""
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, 0)
+    logp = F.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, safe[..., None])[..., 0]
+    nll = torch.where(valid, nll, 0.0)
+    return nll.sum() / valid.sum().clamp_min(1)
+
+
+def clip_loss(
+    smiles_features: torch.Tensor, conformer_features: torch.Tensor, bad_rows: torch.Tensor
+) -> torch.Tensor:
+    """Symmetric InfoNCE over the batch, in float32; rows flagged in
+    bad_rows are no one's label."""
+    sf = smiles_features.float()
+    cf = conformer_features.float()
+    logits = sf @ cf.t()
+    n = logits.shape[0]
+    labels = torch.where(bad_rows, -1, torch.arange(n, device=logits.device))
+    return 0.5 * (cross_entropy_ignore(logits, labels) + cross_entropy_ignore(logits.t(), labels))
+
+
+def ar_loss_fn(logits: torch.Tensor, y_next: torch.Tensor) -> torch.Tensor:
+    """Next-token cross-entropy with -1-masked labels, averaged over all
+    valid tokens of the batch."""
+    return cross_entropy_ignore(logits.reshape(-1, logits.shape[-1]), y_next.reshape(-1))
+
+
+# -------------------------------------------------------------- forward
+
+
+def _pick_point(
+    rows: int,
+    p_clip_emb_smi: float,
+    device,
+    generator: Optional[torch.Generator],
+    pick_point: Optional[torch.Tensor],
+) -> torch.Tensor:
+    """(B, 1) bool: rows whose injected clip token comes from the point
+    encoder (probability 1 - p_clip_emb_smi). A given `pick_point` mask is
+    used as it is, so that a test can feed two implementations one choice."""
+    if pick_point is not None:
+        return pick_point.to(device=device, dtype=torch.bool).reshape(rows, 1)
+    draws = torch.rand((rows, 1), generator=generator, device=device)
+    return draws > p_clip_emb_smi
+
+
+def _cast_once(params: CoatiModel, cfg: CoatiConfig) -> CoatiModel:
+    """The whole model cast to the compute dtype, once per training forward:
+    the functions below then find nothing left to cast, and the transformer,
+    which runs twice, shares one cast copy (and one cast in the backward)."""
+    return cast_floats(params, cfg.xformer_config.compute_dtype)
+
+
+def _encode_both(params, cfg, generator, raw_tokens, atoms, coords, stop_token,
+                 p_clip_emb_smi, pick_point):
+    """Both encoders, the two candidate clip tokens and the per-row choice
+    between them: (h_e3gnn, h_smiles, smiles_tok, clip_token)."""
+    h_e3gnn = encode_points(params, cfg, atoms, coords)
+    h_smiles = encode_tokens(params, cfg, raw_tokens, stop_token)
+    point_tok = clip_to_special_token(params, h_e3gnn)
+    smiles_tok = clip_to_special_token(params, h_smiles)
+    pick = _pick_point(h_e3gnn.shape[0], p_clip_emb_smi, h_e3gnn.device, generator, pick_point)
+    return h_e3gnn, h_smiles, smiles_tok, torch.where(pick, point_tok, smiles_tok)
+
+
+def forward(
+    params: CoatiModel,
+    cfg: CoatiConfig,
+    generator: Optional[torch.Generator],
+    raw_tokens: torch.Tensor,
+    augmented_tokens: torch.Tensor,
+    atoms: torch.Tensor,
+    coords: torch.Tensor,
+    stop_token: int,
+    unk_token: int,
+    p_clip_emb_smi: float = 0.4,
+    pick_point: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Training forward: encode both modalities, pick the injected clip
+    token per row at random (the point token with probability
+    1 - p_clip_emb_smi, drawn from `generator` on the inputs' device unless
+    `pick_point` gives the choice), run the decoder with injection.
+
+    Returns (h_e3gnn, h_smiles, logits, bad_rows)."""
+    params = _cast_once(params, cfg)
+    h_e3gnn, h_smiles, _, clip_token = _encode_both(
+        params, cfg, generator, raw_tokens, atoms, coords, stop_token, p_clip_emb_smi, pick_point
+    )
+    logits = forward_logits(params.xformer, cfg.xformer_config, augmented_tokens, clip_token,
+                            unk_token)
+    bad_rows = augmented_tokens.sum(dim=-1) < 1
+    return h_e3gnn, h_smiles, logits, bad_rows
+
+
+def forward_fp(
+    params: CoatiModel,
+    cfg: CoatiConfig,
+    generator: Optional[torch.Generator],
+    raw_tokens: torch.Tensor,
+    augmented_tokens: torch.Tensor,
+    atoms: torch.Tensor,
+    coords: torch.Tensor,
+    stop_token: int,
+    unk_token: int,
+    p_clip_emb_smi: float = 0.4,
+    pick_point: Optional[torch.Tensor] = None,
+):
+    """Fingerprint-variant training forward: `forward`, and the
+    fingerprint logits computed from the smiles clip token.
+
+    Returns (h_e3gnn, h_smiles, logits, bad_rows, fp_preds)."""
+    params = _cast_once(params, cfg)
+    h_e3gnn, h_smiles, smiles_tok, clip_token = _encode_both(
+        params, cfg, generator, raw_tokens, atoms, coords, stop_token, p_clip_emb_smi, pick_point
+    )
+    fp_preds = fp_predictions(params, cfg, smiles_tok)
+    logits = forward_logits(params.xformer, cfg.xformer_config, augmented_tokens, clip_token,
+                            unk_token)
+    bad_rows = augmented_tokens.sum(dim=-1) < 1
+    return h_e3gnn, h_smiles, logits, bad_rows, fp_preds
 
 
 def tokens_likelihood(

@@ -8,6 +8,8 @@ and (out, in) weight layout are the reference's.
     models/io.py params_to_state), into that flat state dict: linear
     weights are transposed from (in, out) and layer stacks are split per
     layer, exactly as coati_tpu's export_coati would name them.
+  * `gradients_from_coati_tpu` carries a JAX gradient pytree the same way,
+    so that gradients compare name by name.
   * `load_reference_state_dict` loads a reference-format flat state dict
     (torch tensors or numpy arrays, optional 'module.' prefixes) strictly.
 """
@@ -180,6 +182,16 @@ def state_from_coati_tpu(nested: Mapping, old_architecture: bool = False) -> Dic
         sd[f"fp_networks.{name}.weight"] = _lin(head["w"])
         sd[f"fp_networks.{name}.bias"] = _tensor(head["b"])
     return sd
+
+
+def gradients_from_coati_tpu(
+    nested: Mapping, old_architecture: bool = False
+) -> Dict[str, torch.Tensor]:
+    """A coati_tpu gradient pytree (nested numpy, the structure of the
+    parameters) under the port's parameter names and layouts. The map of
+    `state_from_coati_tpu` only transposes and unstacks, so it carries a
+    gradient exactly as it carries the parameter."""
+    return state_from_coati_tpu(nested, old_architecture)
 
 
 def load_reference_state_dict(model: CoatiModel, state_dict: Mapping[str, object]) -> CoatiModel:

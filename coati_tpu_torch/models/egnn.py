@@ -6,9 +6,9 @@ weights in PyTorch's (out, in) layout). Messages are computed densely over
 all atom pairs with a multiplicative smooth-cutoff mask; the edge MLP's
 first layer is decomposed as h_i @ W_a + h_j @ W_b + d^2 * w_c so the
 pairwise concat never materializes, and with `fused_messages` the whole
-edge MLP and its weighted sum run in the port's message kernel K3
-(ops/kernels/egnn_messages.py), which keeps the (B, N, N, H) tensor out of
-device memory.
+edge MLP and its weighted sum run in the port's message kernel K3, and their
+gradient in its backward kernel K4 (ops/kernels/egnn_messages.py), which keep
+the (B, N, N, H) tensors out of device memory.
 
 Semantics preserved exactly:
   * cubic smooth cutoff f(d) with f(0)=1, f(cut)=0;
@@ -32,6 +32,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from coati_tpu_torch.common.periodic_table import xy_one_hot_full_table
 from coati_tpu_torch.ops.kernels.egnn_messages import egnn_messages
@@ -43,9 +44,10 @@ N_TORCH_EMB = 84  # rows of the nn.Embedding table when torch_emb
 
 @dataclass(frozen=True)
 class EgnnConfig:
-    """Field names of coati_tpu's EgnnConfig. `dropout`, `precision` and
-    `remat` have no effect here: inference has no dropout, float32 matmuls
-    run in full float32, and nothing is rematerialized without a backward."""
+    """Field names of coati_tpu's EgnnConfig. `dropout` and `precision` have
+    no effect here: no reference config uses dropout, and float32 matmuls run
+    in full float32. `remat` recomputes each layer in the backward pass
+    (torch.utils.checkpoint) instead of keeping its activations."""
 
     hidden_nf: int = 128
     n_layers: int = 5
@@ -58,8 +60,8 @@ class EgnnConfig:
     dtype: str = "float32"
     precision: str = "default"
     remat: bool = True
-    # fused message kernel K3 (needs SiLU); otherwise the dense path, which
-    # materializes the (B, N, N, H) pairwise tensors
+    # fused message kernels K3 and K4 (need SiLU); otherwise the dense path,
+    # which materializes the (B, N, N, H) pairwise tensors
     fused_messages: bool = True
 
     def replace(self, **changes) -> "EgnnConfig":
@@ -178,8 +180,13 @@ def egnn_forward(
     d2, msg_weight = pair_geometry(node_mask, coords, cfg.message_cutoff)
     h0 = nodes if cfg.residual else None
 
+    remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
-        h = _egnn_layer(h, getattr(params, f"gcl_{i}"), cfg, d2, msg_weight, h0)
+        gcl = getattr(params, f"gcl_{i}")
+        if remat:
+            h = checkpoint(_egnn_layer, h, gcl, cfg, d2, msg_weight, h0, use_reentrant=False)
+        else:
+            h = _egnn_layer(h, gcl, cfg, d2, msg_weight, h0)
 
     dec1, dec2 = params.node_dec[0], params.node_dec[3]
     h = linear(h, dec1.weight, dec1.bias)

@@ -8,15 +8,18 @@ optimizer, model_kwargs, ...}. Two formats of `model` load:
   * the reference's: a flat state dict with dotted keys, of torch tensors
     (decoded onto the CPU) or numpy arrays.
 
-Both become the port's CoatiModel on the requested device.
+Both become the port's CoatiModel on the requested device. The port's own
+training checkpoints (`serialize_model`) are written in the second format,
+with numpy arrays, which both packages' loaders read.
 """
 
 from __future__ import annotations
 
 import pickle
 from io import BytesIO
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from coati_tpu_torch.common.util import resolve_device
@@ -96,3 +99,36 @@ def load_e3gnn_smiles_clip_e2e(
         print("NTokens: ", doc.get("n_toks_processed"))
         print("Model kwargs: ", model_kwargs)
     return COATI(model, cfg), tokenizer
+
+
+# ------------------------------------------------------- our checkpoints
+
+
+def model_to_state(model: torch.nn.Module) -> Dict[str, np.ndarray]:
+    """The model's state dict as numpy arrays under the reference's dotted
+    keys (pickle-friendly, and free of any torch payload)."""
+    return {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+
+
+def serialize_model(
+    train_args: dict,
+    dataset_summary: dict,
+    model_state: dict,
+    model_kwargs: dict,
+    optimizer_state=None,
+    **kwargs,
+) -> bytes:
+    """Build a model-document blob in the reference's envelope; extra
+    keywords (n_toks_processed, n_grads_processed, offline_loss) are stored
+    beside the fixed ones."""
+    doc = {
+        "train_args": train_args,
+        "dataset_summary": dataset_summary,
+        "model": model_state,
+        "optimizer": optimizer_state,
+        "model_kwargs": model_kwargs,
+        **kwargs,
+    }
+    blob = pickle.dumps(doc, protocol=pickle.HIGHEST_PROTOCOL)
+    print("Model Document size (MB): ", len(blob) / (1024 * 1024))
+    return blob

@@ -1,8 +1,8 @@
 """Causal rotary SMILES transformer — the COATI encoder/decoder trunk.
 
-PyTorch counterpart of coati_tpu/models/transformer.py, inference half:
-the full-sequence forward (encode), prefill into a KV cache, and one
-decode step. The parameters live in `SmilesTransformer`, an nn.Module
+PyTorch counterpart of coati_tpu/models/transformer.py: the full-sequence
+forward (encode, and the training forward to logits), prefill into a KV
+cache, and one decode step. The parameters live in `SmilesTransformer`, an nn.Module
 whose state-dict keys are the reference RotarySmilesTransformer's
 ('emb.tok_emb.weight', 'transformer.h.{i}.attn.c_attn.weight', ...) with
 weights in PyTorch's (out, in) layout; the functions below take it as
@@ -11,7 +11,9 @@ weights in PyTorch's (out, in) layout; the functions below take it as
 Attention goes through the port's kernels: K2 (flash causal attention)
 for every full-sequence pass, encode and prefill alike, or K5f (the
 short-sequence kernel, T <= 128) under prefill_kernel="packed"; and K1
-(masked read decode attention) for every decode step. On CPU tensors the
+(masked read decode attention) for every decode step. Both full-sequence
+wrappers are differentiable: K5f's backward is the kernel K5b, K2's replays
+the plain attention. On CPU tensors the
 kernel wrappers run their plain versions. The config fields
 `prefill_kernel` and `decode_kernel` stay so documents load, but cannot
 route around the kernels: their other TPU-era choices ("xla", "pallas",
@@ -29,6 +31,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from coati_tpu_torch.ops.kernels.decode_attention import (
     decode_attention,
@@ -43,10 +46,11 @@ from coati_tpu_torch.ops.rotary import apply_rotary, rotary_tables
 @dataclass(frozen=True)
 class TransformerConfig:
     """Field names of coati_tpu's TransformerConfig, so stored configs load.
-    `precision`, `remat`, `topk_recall` and `softmax_dtype` have no effect
-    here: float32 matmuls run in full float32, top-k is always exact, and
-    the attention kernels always take the softmax in float32 (as the TPU's
-    flash kernel did)."""
+    `precision`, `topk_recall` and `softmax_dtype` have no effect here:
+    float32 matmuls run in full float32, top-k is always exact, and the
+    attention kernels always take the softmax in float32 (as the TPU's flash
+    kernel did). `remat` recomputes each block in the backward pass
+    (torch.utils.checkpoint) instead of keeping its activations."""
 
     n_layer: int = 4
     n_embd: int = 128
@@ -251,10 +255,30 @@ def forward_hidden(
     params = cast_floats(params, cfg.compute_dtype)
     cos, sin = _rotary(cfg, tokens.device)
     x = embed_tokens(params, cfg, tokens, injection, inject_token)
+    remat = cfg.remat and torch.is_grad_enabled()
     for blk in params.transformer.h:
-        x = _block_full(x, blk, cfg, cos, sin)
+        if remat:
+            x = checkpoint(_block_full, x, blk, cfg, cos, sin, use_reentrant=False)
+        else:
+            x = _block_full(x, blk, cfg, cos, sin)
     lnf = params.transformer.ln_f
     return layer_norm(x, lnf.weight, lnf.bias)
+
+
+def _lm_head(params: SmilesTransformer, cfg: TransformerConfig, hidden: torch.Tensor):
+    return linear(hidden, params.lm_head.weight.to(cfg.compute_dtype))
+
+
+def forward_logits(
+    params: SmilesTransformer,
+    cfg: TransformerConfig,
+    tokens: torch.Tensor,
+    injection: Optional[torch.Tensor] = None,
+    inject_token: Optional[int] = None,
+) -> torch.Tensor:
+    """(B, T) -> (B, T, n_tok). With injection this is the reference's
+    forward_with_replacement."""
+    return _lm_head(params, cfg, forward_hidden(params, cfg, tokens, injection, inject_token))
 
 
 def stop_token_hidden(hidden: torch.Tensor, tokens: torch.Tensor, stop_token: int) -> torch.Tensor:
@@ -269,6 +293,19 @@ def encode(
 ) -> torch.Tensor:
     """(B, T) -> (B, D): hidden state at [STOP]."""
     return stop_token_hidden(forward_hidden(params, cfg, tokens), tokens, stop_token)
+
+
+def forward_with_stop_emb(
+    params: SmilesTransformer,
+    cfg: TransformerConfig,
+    tokens: torch.Tensor,
+    stop_token: int,
+    injection: Optional[torch.Tensor] = None,
+    inject_token: Optional[int] = None,
+):
+    """(logits, stop_hidden) in one pass."""
+    hidden = forward_hidden(params, cfg, tokens, injection, inject_token)
+    return _lm_head(params, cfg, hidden), stop_token_hidden(hidden, tokens, stop_token)
 
 
 # ----------------------------------------------------------- decode step

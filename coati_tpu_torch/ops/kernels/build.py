@@ -25,7 +25,10 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("flash_attention", "decode_attention", "egnn_messages", "packed_attention")
+SOURCES = (
+    "flash_attention", "decode_attention", "egnn_messages", "packed_attention",
+    "egnn_messages_bwd", "packed_attention_bwd",
+)
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -14,8 +14,13 @@ there is no fallback. `flash_causal_attention.launches` counts launches.
 q/k/v may be strided views (the slices of the fused qkv projection): the
 kernel takes their batch and token strides and reads them in place; heads
 must be packed (head stride Dh, element stride 1). The output is a new
-contiguous (B, T, H, Dh) tensor in the input dtype. Forward only: the
-backward kernel comes with training.
+contiguous (B, T, H, Dh) tensor in the input dtype.
+
+`flash_causal_attention` goes through `FlashCausalAttention`, a
+torch.autograd.Function whose forward is K2. K2 has no backward kernel: the
+JAX package's VJP of its flash kernel (flash_attention.py, _bwd) replays the
+plain attention under jax.vjp, and the backward here does the same with
+ops/attention.causal_attention_backward, in batch chunks, on the card.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ import math
 
 import torch
 
-from coati_tpu_torch.ops.attention import causal_attention
+from coati_tpu_torch.ops.attention import causal_attention, causal_attention_backward
 from coati_tpu_torch.ops.kernels import build
 
 HEAD_DIMS = (16, 32, 64)
@@ -76,8 +81,8 @@ def check_qkv(
             )
 
 
-def flash_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """q, k, v: (B, T, H, Dh) -> (B, T, H, Dh), causal, softmax in float32."""
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """K2 on CUDA tensors, its plain version on CPU tensors."""
     if q.device.type == "cpu":
         return causal_attention(q, k, v, softmax_dtype=torch.float32)
     check_qkv(q, k, v)
@@ -92,6 +97,25 @@ def flash_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) ->
     build.check(err, "flash_causal_attention kernel")
     flash_causal_attention.launches += 1
     return out
+
+
+class FlashCausalAttention(torch.autograd.Function):
+    """K2 forward; the backward replays the plain attention's gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return _forward(q, k, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        return causal_attention_backward(*ctx.saved_tensors, g)
+
+
+def flash_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """q, k, v: (B, T, H, Dh) -> (B, T, H, Dh), causal, softmax in float32.
+    Differentiable (see FlashCausalAttention)."""
+    return FlashCausalAttention.apply(q, k, v)
 
 
 flash_causal_attention.launches = 0

@@ -21,13 +21,30 @@ def cast_floats(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     """The module with its float32 parameters cast to the compute dtype
     (fp32 master weights, low-precision compute). Returns the module
     itself when nothing needs casting, so callers that cast once up front
-    pay nothing on the hot path."""
-    if not any(p.dtype == torch.float32 and p.dtype != dtype for p in module.parameters()):
+    pay nothing on the hot path.
+
+    The cast is one autograd follows: the result is a structural copy of
+    the module (same classes, same child names, so indexing, iteration and
+    isinstance checks work as on the original) that holds, in place of each
+    parameter, the tensor `p.to(dtype)`. A loss computed through the copy
+    leaves its gradient, in float32, on the master parameters. The copy
+    registers no parameters of its own."""
+    if dtype == torch.float32 or not any(
+        p.dtype == torch.float32 for p in module.parameters()
+    ):
         return module
-    out = copy.deepcopy(module)
-    for p in out.parameters():
-        if p.dtype == torch.float32:
-            p.data = p.data.to(dtype)
+    return _cast_copy(module, dtype)
+
+
+def _cast_copy(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    out = copy.copy(module)  # a new object with a new __dict__, contents shared
+    out.__dict__["_parameters"] = {}
+    out.__dict__["_modules"] = {
+        name: None if child is None else _cast_copy(child, dtype)
+        for name, child in module._modules.items()
+    }
+    for name, p in module._parameters.items():
+        out.__dict__[name] = p.to(dtype) if p is not None and p.dtype == torch.float32 else p
     return out
 
 

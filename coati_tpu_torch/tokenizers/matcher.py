@@ -3,8 +3,11 @@
 Splits text along the boundaries of known tokens, scanning left to right
 and always taking the longest vocabulary token that starts at the current
 position (the semantics of coati_tpu/tokenizers/matcher.py). This is the
-pure-Python scan only: a first-char-indexed, length-descending search,
-O(n * max_token_len). The native C fast path waits for a later slice.
+pure-Python scan only: per first character, the vocabulary's tokens grouped
+by length, tried longest first with one set lookup each, so a position costs
+the number of distinct token lengths and not the number of tokens (the "mar"
+vocabulary has thousands that start with "["). The native C fast path waits
+for a later slice.
 
 Unmatched characters accumulate into passthrough spans (they later raise
 KeyError at vocab lookup, as in the reference).
@@ -19,28 +22,29 @@ class VocabMatcher:
     """Pure-Python leftmost-longest scan over a fixed vocabulary."""
 
     def __init__(self, tokens: Iterable[str] = ()):
-        # first char -> list of candidate tokens, longest first
-        self._by_first: dict[str, List[str]] = {}
-        self._max_len = 0
+        # first char -> {length: tokens of that length}, and the lengths,
+        # longest first
+        self._by_first: dict[str, dict[int, set[str]]] = {}
+        self._lengths: dict[str, List[int]] = {}
         for t in tokens:
             self.add(t)
 
     def add(self, token: str) -> None:
         if not token:
             return
-        bucket = self._by_first.setdefault(token[0], [])
-        if token not in bucket:
-            bucket.append(token)
-            bucket.sort(key=len, reverse=True)
-            self._max_len = max(self._max_len, len(token))
+        by_length = self._by_first.setdefault(token[0], {})
+        by_length.setdefault(len(token), set()).add(token)
+        self._lengths[token[0]] = sorted(by_length, reverse=True)
 
     def _match_at(self, text: str, pos: int) -> str | None:
-        bucket = self._by_first.get(text[pos])
-        if not bucket:
+        first = text[pos]
+        lengths = self._lengths.get(first)
+        if not lengths:
             return None
-        window = text[pos : pos + self._max_len]
-        for cand in bucket:  # longest first
-            if window.startswith(cand):
+        by_length = self._by_first[first]
+        for length in lengths:  # longest first
+            cand = text[pos : pos + length]
+            if cand in by_length[length]:
                 return cand
         return None
 

@@ -2,8 +2,9 @@
 on the CPU: weights carried across both ways, encode and the clip-token
 MLP, greedy generation token for token, the embed -> decode round trip
 with shared host noise, prefix completion, the likelihood methods, the
-fingerprint heads, and the trained grande document docs/eval_model_r5.pkl
-on both of its paths (SMILES and 3D point clouds).
+fingerprint heads, the losses and the training forward with the gradient of
+every parameter, and the trained grande document docs/eval_model_r5.pkl on
+both of its paths (SMILES and 3D point clouds).
 
 Tolerance atol 3e-5, rtol 1e-4 (float32 summation order) unless a line
 says otherwise; the JAX side runs at precision="highest"."""
@@ -33,6 +34,8 @@ from coati_tpu_torch.models.convert import model_from_state, state_from_coati_tp
 from coati_tpu_torch.models.io import load_e3gnn_smiles_clip_e2e
 from coati_tpu_torch.tokenizers import get_vocab
 from coati_tpu_torch.tokenizers.trie_tokenizer import TrieTokenizer
+
+from tests import torch_port_helpers as hp
 
 ATOL, RTOL = 3e-5, 1e-4
 DOC = Path(__file__).resolve().parents[1] / "docs" / "eval_model_r5.pkl"
@@ -452,3 +455,195 @@ def test_trained_document_packed_prefill_equals_auto(trained_pair):
     _close(ph, h, atol=0, rtol=0)
     with pytest.raises(ValueError, match="T <= 128"):
         packed.encode_tokens(_smiles_tokens(ttok, SMILES[:2], width=250), ttok)
+
+
+# ------------------------------------------------ losses and training forward
+
+TRAIN_SMILES = ["CCO", "c1ccccc1", "CC(=O)O", "CCN(CC)CC", "OCC1OC(O)C(O)C(O)C1O", "CC(C)C"]
+
+
+def test_losses_match_jax_values_and_gradients():
+    """clip_loss with bad rows, ar_loss_fn with -1 labels, and the
+    all-masked batch, whose loss is zero with a zero gradient."""
+    rng = np.random.default_rng(40)
+    sf, cf = (rng.normal(size=(6, 32)).astype(np.float32) for _ in range(2))
+    bad = np.array([False, True, False, False, True, False])
+    ts, tc = (torch.tensor(x, requires_grad=True) for x in (sf, cf))
+    mine = tco.clip_loss(ts, tc, torch.tensor(bad))
+    ref, (ds, dc) = jax.value_and_grad(
+        lambda a, b: jco.clip_loss(a, b, jnp.asarray(bad), jax.lax.Precision.HIGHEST),
+        argnums=(0, 1))(jnp.asarray(sf), jnp.asarray(cf))
+    _close(mine.detach(), ref)
+    mine.backward()
+    _close(ts.grad, ds)
+    _close(tc.grad, dc)
+    assert mine.dtype == torch.float32
+    assert tco.clip_loss(ts.bfloat16(), tc.bfloat16(), torch.tensor(bad)).dtype == torch.float32
+
+    logits = rng.normal(size=(3, 7, 11)).astype(np.float32)
+    labels = rng.integers(0, 11, size=(3, 7))
+    labels[0, 3:] = -1
+    labels[2] = -1
+    tl = torch.tensor(logits, requires_grad=True)
+    mine = tco.ar_loss_fn(tl, torch.tensor(labels))
+    ref, dl = jax.value_and_grad(lambda x: jco.ar_loss_fn(x, jnp.asarray(labels)))(
+        jnp.asarray(logits))
+    _close(mine.detach(), ref)
+    mine.backward()
+    _close(tl.grad, dl)
+    assert not tl.grad[2].any()
+    _close(tco.cross_entropy_ignore(torch.tensor(logits[0]), torch.tensor(labels[0]) * 0 + 5, 5),
+           jco.cross_entropy_ignore(jnp.asarray(logits[0]), jnp.asarray(labels[0]) * 0 + 5, 5))
+
+    tl = torch.tensor(logits, requires_grad=True)
+    masked = tco.ar_loss_fn(tl, torch.full((3, 7), -1))
+    assert float(masked.detach()) == 0.0 == float(jco.ar_loss_fn(jnp.asarray(logits), jnp.full((3, 7), -1)))
+    masked.backward()
+    assert not tl.grad.any()
+
+
+def test_fp_loss_matches_jax():
+    rng = np.random.default_rng(41)
+    preds = {"morgan": rng.normal(size=(4, 24)).astype(np.float32),
+             "maccs": rng.normal(size=(4, 7)).astype(np.float32)}
+    targets = {k: rng.integers(0, 2, size=v.shape) for k, v in preds.items()}
+    tp = {k: torch.tensor(v, requires_grad=True) for k, v in preds.items()}
+    mine = tco.fp_loss_fn(tp, {k: torch.tensor(v) for k, v in targets.items()})
+    ref, grads = jax.value_and_grad(
+        lambda p: jco.fp_loss_fn(p, {k: jnp.asarray(v) for k, v in targets.items()}))(
+        {k: jnp.asarray(v) for k, v in preds.items()})
+    _close(mine.detach(), ref)
+    mine.backward()
+    for k in preds:
+        _close(tp[k].grad, grads[k])
+    assert float(tco.fp_loss_fn({}, {})) == 0.0 == float(jco.fp_loss_fn({}, {}))
+
+
+def _shared_pick(key, rows, p):
+    """The clip-token choice coati_tpu's forward draws from `key`."""
+    return np.asarray(jax.random.uniform(key, (rows, 1)) > p)
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["no_remat", "remat"])
+def test_training_forward_matches_jax_outputs_loss_and_every_gradient(remat):
+    """coati.forward with the same clip-token choice on both sides: the four
+    outputs, the total loss ar + clip * log2(n_tok), and the gradient of
+    every parameter, also with both trunks rematerialized. One row is all
+    padding (a failed row of the transform)."""
+    tok = hp.tokenizer(32)
+    jparams, jcfg, model, tcfg = hp.model_pair(seed=42, n_layer_e3gnn=2, remat=remat,
+                                               egnn_remat=remat)
+    batch = hp.batch_arrays(tok, TRAIN_SMILES, seed=43)
+    batch["tokens"][3] = 0
+    batch["y_next"][3] = -1
+    key = jax.random.PRNGKey(44)
+    pick = _shared_pick(key, len(TRAIN_SMILES), 0.5)
+    assert pick.any() and not pick.all()
+    unit = float(np.log2(tok.n_token))
+    jb = hp.jax_batch(batch)
+
+    def jloss(params):
+        he, hs, logits, bad = jco.forward(params, jcfg, key, jb["raw_tokens"], jb["tokens"],
+                                          jb["atoms"], jb["coords"], tok.stop_token,
+                                          tok.unk_token, 0.5)
+        ar, cl = jco.ar_loss_fn(logits, jb["y_next"]), jco.clip_loss(hs, he, bad)
+        return ar + cl * unit, (he, hs, logits, bad, ar, cl)
+
+    (jtotal, (jhe, jhs, jlogits, jbad, jar, jcl)), jgrads = jax.value_and_grad(
+        jloss, has_aux=True)(jparams)
+    tb = hp.torch_batch(batch)
+    he, hs, logits, bad = tco.forward(model, tcfg, None, tb["raw_tokens"], tb["tokens"],
+                                      tb["atoms"], tb["coords"], tok.stop_token, tok.unk_token,
+                                      0.5, pick_point=torch.tensor(pick))
+    _close(he.detach(), jhe)
+    _close(hs.detach(), jhs)
+    _close(logits.detach(), jlogits, atol=1e-4)  # 32-wide sums into logits of order 10
+    assert bad.tolist() == np.asarray(jbad).tolist() == [False, False, False, True, False, False]
+    ar, cl = tco.ar_loss_fn(logits, tb["y_next"]), tco.clip_loss(hs, he, bad)
+    total = ar + cl * unit
+    np.testing.assert_allclose(float(ar.detach()), float(jar), rtol=1e-5)
+    np.testing.assert_allclose(float(cl.detach()), float(jcl), rtol=1e-5)
+    np.testing.assert_allclose(float(total.detach()), float(jtotal), rtol=1e-5)
+    total.backward()
+    compared = hp.assert_gradients_match(model.named_parameters(), jgrads, atol=1e-4, rtol=1e-3,
+                                         unused=(".coord_mlp.",))
+    assert compared == len(list(model.parameters())) - 2 * 3  # all but two layers' coord MLPs
+
+
+def test_training_forward_draws_the_choice_from_the_generator():
+    """Without a given mask the choice comes from the torch.Generator: the
+    same seed gives the same logits, another seed other ones, p 0 and 1 take
+    the point token and the SMILES token for every row."""
+    tok = hp.tokenizer(32)
+    _, _, model, tcfg = hp.model_pair(seed=45)
+    tb = hp.torch_batch(hp.batch_arrays(tok, TRAIN_SMILES, seed=46))
+
+    def logits(seed, p, pick=None):
+        gen = None if seed is None else torch.Generator().manual_seed(seed)
+        with torch.no_grad():
+            return tco.forward(model, tcfg, gen, tb["raw_tokens"], tb["tokens"], tb["atoms"],
+                               tb["coords"], tok.stop_token, tok.unk_token, p, pick_point=pick)[2]
+
+    assert torch.equal(logits(0, 0.5), logits(0, 0.5))
+    assert any(not torch.equal(logits(0, 0.5), logits(seed, 0.5)) for seed in (1, 2, 3))
+    ones = torch.ones(len(TRAIN_SMILES), dtype=torch.bool)
+    assert torch.equal(logits(0, 0.0), logits(None, 0.5, ones))
+    assert torch.equal(logits(0, 1.0), logits(None, 0.5, ~ones))
+    assert not torch.equal(logits(0, 0.0), logits(0, 1.0))
+
+
+def test_forward_fp_matches_jax():
+    tok = hp.tokenizer(32)
+    fp_map = (("morgan", 24), ("maccs", 7))
+    jparams, jcfg, model, tcfg = hp.model_pair(seed=47, fp_map=fp_map)
+    batch = hp.batch_arrays(tok, TRAIN_SMILES, seed=48)
+    key = jax.random.PRNGKey(49)
+    pick = _shared_pick(key, len(TRAIN_SMILES), 0.4)
+    jb, tb = hp.jax_batch(batch), hp.torch_batch(batch)
+    ref = jco.forward_fp(jparams, jcfg, key, jb["raw_tokens"], jb["tokens"], jb["atoms"],
+                         jb["coords"], tok.stop_token, tok.unk_token)
+    with torch.no_grad():
+        mine = tco.forward_fp(model, tcfg, None, tb["raw_tokens"], tb["tokens"], tb["atoms"],
+                              tb["coords"], tok.stop_token, tok.unk_token,
+                              pick_point=torch.tensor(pick))
+    for x, r in zip(mine[:2], ref[:2]):
+        _close(x, r)
+    _close(mine[2], ref[2], atol=1e-4)
+    assert mine[3].tolist() == np.asarray(ref[3]).tolist()
+    assert sorted(mine[4]) == sorted(ref[4]) == ["maccs", "morgan"]
+    for name in mine[4]:
+        _close(mine[4][name], ref[4][name])
+
+
+def test_fresh_model_initialisation_has_the_bounds_coati_tpu_imitates():
+    """A fresh CoatiModel takes PyTorch's defaults: Linear weights and biases
+    uniform within 1/sqrt(fan_in), embeddings standard normal, LayerNorm one
+    and zero. coati_tpu's init_coati draws the same distributions
+    (ops/layers.py torch_linear_init, torch_embedding_init), so the bounds
+    and moments agree; the values cannot (two generators)."""
+    from coati_tpu_torch.training.train import fresh_model
+
+    jparams, _, _, tcfg = hp.model_pair(seed=50, n_hidden_xformer=64, n_embd_common=64, n_head=4)
+    model = fresh_model(tcfg, torch.device("cpu"), seed=0)
+    again = fresh_model(tcfg, torch.device("cpu"), seed=0)
+    other = fresh_model(tcfg, torch.device("cpu"), seed=1)
+    ref = {k: v.numpy() for k, v in state_from_coati_tpu(params_to_state(jparams)).items()}
+    for (name, p), q, r in zip(model.named_parameters(), again.parameters(), other.parameters()):
+        assert torch.equal(p, q), name
+        x, jx = p.detach().numpy(), ref[name]
+        assert x.shape == jx.shape
+        if name.endswith("tok_emb.weight"):
+            assert abs(x.std() - 1) < 0.05 and abs(jx.std() - 1) < 0.05 and abs(x.mean()) < 0.05
+        elif np.ptp(jx) == 0:  # LayerNorm scales and biases
+            assert np.array_equal(x, jx), name
+        else:
+            assert not torch.equal(p, r), name
+            fan_in = p.shape[1] if p.dim() == 2 else None
+            if fan_in is None:  # a bias: the bound of its layer's weight
+                weight = dict(model.named_parameters())[name[: -len("bias")] + "weight"]
+                fan_in = weight.shape[1]
+            bound = 1 / np.sqrt(fan_in)
+            assert np.abs(x).max() <= bound and np.abs(jx).max() <= bound + 1e-7, name
+            if x.size >= 1024:  # a uniform's standard deviation is bound / sqrt(3)
+                assert abs(x.std() * np.sqrt(3) / bound - 1) < 0.1, name
+                assert abs(jx.std() * np.sqrt(3) / bound - 1) < 0.1, name

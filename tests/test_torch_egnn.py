@@ -1,6 +1,8 @@
 """coati_tpu_torch point-cloud path against coati_tpu on the CPU: the plain
 version of the message kernel K3 (against the JAX reference and the JAX
-kernel's own CPU dispatch), instance norm, the cubic cutoff, the EGNN
+kernel's own CPU dispatch), the plain version of its backward K4 (against
+jax.grad, torch.autograd and the TPU backward kernel's body in interpret
+mode), the gradients of the EGNN, instance norm, the cubic cutoff, the EGNN
 forward at 2 layers x 32 hidden with ragged atom counts and every option,
 and encode_points through weights carried across by convert.py.
 
@@ -8,11 +10,14 @@ Inputs come from numpy seeds and go to both packages. Tolerance atol 3e-5,
 rtol 1e-4 (float32 summation order) unless a line says why; the JAX side
 runs at precision="highest"."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
 
 from coati_tpu.models import coati as jco
 from coati_tpu.models import egnn as jegnn
@@ -27,6 +32,8 @@ from coati_tpu_torch.models.convert import state_from_coati_tpu
 from coati_tpu_torch.ops import egnn_messages as plain
 from coati_tpu_torch.ops import layers as tlayers
 from coati_tpu_torch.ops.kernels import egnn_messages as kmsg
+
+from tests.torch_port_helpers import assert_gradients_match, jax_gradients_by_name, model_pair
 
 ATOL, RTOL = 3e-5, 1e-4
 
@@ -108,7 +115,7 @@ def test_plain_messages_chunking_and_bf16_product():
 
 def test_plain_messages_are_differentiable():
     """Autograd through the plain version gives the gradients of the JAX
-    reference (the training slice will hold the backward kernel to it)."""
+    reference (the plain backward K4 is held to both further down)."""
     args = _message_inputs(2, 6, 16, seed=4, live=(6, 4))
     targs = [_t(x) for x in args]
     for i in (0, 1, 4, 5, 6, 7):
@@ -137,6 +144,204 @@ def test_message_wrapper_refuses_what_the_kernel_does_not_take():
         kmsg._check_inputs(a, a, p[:, :4], p, v, v, m, v, torch.float32)
     with pytest.raises(TypeError, match="mm_dtype"):
         kmsg._check_inputs(a, a, p, p, v, v, m, v, torch.float16)
+
+
+# ------------------------------------------------- the message backward (K4)
+
+GRAD_ARGS = (0, 1, 4, 5, 6, 7)  # a, c, wd, b1, w2, b2: d2 and w get no gradient
+
+
+def _holes(args):
+    """The same inputs with a dead row i, a dead column j and one molecule
+    whose live pairs are a ragged prefix, beside what `live` already cut."""
+    args = [np.array(x) for x in args]
+    w = args[3]
+    w[0, 2, :] = 0.0
+    w[0, :, 4] = 0.0
+    for i in range(w.shape[1]):
+        w[-1, i, max(0, w.shape[2] - 1 - i):] = 0.0
+    return args
+
+
+def _jax_message_grads(fn, args, g):
+    def loss(a, c, wd, b1, w2, b2):
+        return jnp.sum(fn(a, c, jnp.asarray(args[2]), jnp.asarray(args[3]), wd, b1, w2, b2) * g)
+
+    with jax.default_matmul_precision("highest"):
+        return jax.grad(loss, argnums=range(6))(*(jnp.asarray(args[i]) for i in GRAD_ARGS))
+
+
+@pytest.mark.parametrize(
+    "b,n,hm,live",
+    [(3, 11, 32, None), (4, 16, 128, (16, 9, 1, 0)), (2, 7, 20, (7, 3))],
+    ids=["dense", "ragged_with_all_padding_row", "odd_width"],
+)
+def test_plain_messages_backward_matches_jax_grad_and_autograd(b, n, hm, live):
+    """The plain version of K4, all six gradients, against jax.grad through
+    the JAX kernel's entry point (on the CPU the VJP of its reference) and
+    against torch.autograd through the plain K3; w has dead rows, dead
+    columns and a ragged live prefix. atol 1e-4, rtol 1e-3 as
+    tests/test_pallas_egnn.py: the parameter gradients sum over every pair."""
+    args = _holes(_message_inputs(b, n, hm, seed=b * n, live=live))
+    g = np.random.default_rng(hm).normal(size=(b, n, hm)).astype(np.float32)
+    targs = [_t(x) for x in args]
+    mine = plain.egnn_messages_backward(*targs, _t(g))
+    assert all(x.dtype == torch.float32 for x in mine)
+    for x, ref in zip(mine, _jax_message_grads(jmsg.egnn_messages, args, g)):
+        _close(x, ref, atol=1e-4, rtol=1e-3)
+    leaves = [x.clone().requires_grad_(i in GRAD_ARGS) for i, x in enumerate(targs)]
+    auto = torch.autograd.grad(plain.egnn_messages(*leaves), [leaves[i] for i in GRAD_ARGS], _t(g))
+    for x, ref in zip(mine, auto):
+        _close(x, ref.numpy(), atol=1e-4, rtol=1e-3)
+    w = targs[3]
+    assert not mine[0][w.abs().sum(-1) == 0].any()  # da of atoms i without a live pair
+    assert not mine[1][w.abs().sum(-2) == 0].any()  # dc of atoms j without a live pair
+    rows = plain.egnn_messages_backward(*targs, _t(g), chunk_bytes=1)
+    for x, y in zip(mine, rows):  # molecule by molecule: the parameter sums take another order
+        _close(y, x.numpy(), atol=1e-4, rtol=1e-4)
+
+
+def test_plain_messages_backward_bf16_product():
+    """mm_dtype bfloat16 rounds e1, w2 and dz2 to bf16 before the three
+    products. On the CPU the JAX package's egnn_messages_bf16 differentiates
+    its float32 reference, so the comparison allows bf16's rounding of each
+    factor: 2^-6 of every gradient's largest entry."""
+    args = _holes(_message_inputs(3, 10, 32, seed=7, live=(10, 6, 10)))
+    g = np.random.default_rng(8).normal(size=(3, 10, 32)).astype(np.float32)
+    targs = [_t(x) for x in args]
+    mine = plain.egnn_messages_backward(*targs, _t(g), mm_dtype=torch.bfloat16)
+    exact = plain.egnn_messages_backward(*targs, _t(g))
+    for x, full, ref in zip(mine, exact, _jax_message_grads(jmsg.egnn_messages_bf16, args, g)):
+        assert x.dtype == torch.float32 and not torch.equal(x, full)
+        _close(x, ref, atol=2.0**-6 * float(np.abs(ref).max()), rtol=0)
+    with pytest.raises(TypeError):
+        plain.egnn_messages_backward(*targs, _t(g), mm_dtype=torch.float16)
+
+
+def _pallas_backward_interpret(a, c, d2, w, wd, b1, w2, b2, g, mm_dtype):
+    """The TPU backward kernel's body under pl.pallas_call in interpret
+    mode, with the block layout of the package's _bwd_pallas (which has no
+    interpret switch) on inputs padded by its _pad_all."""
+    b_sz, n, hm = a.shape
+    a_p, c_p, d2_p, w_p, g_p, tile_b = jmsg._pad_all(a, c, d2, w, g, tile_fn=jmsg.bwd_tile_b)
+    bp, ni, nj = a_p.shape[0], a_p.shape[1], c_p.shape[1]
+
+    def rows(r, width):
+        return pl.BlockSpec((tile_b, r, width), lambda i: (i, 0, 0))
+
+    def shared(r):
+        return pl.BlockSpec((r, hm), lambda i: (0, 0))
+
+    da, dc, dwd, db1, dw2, db2 = pl.pallas_call(
+        functools.partial(jmsg._bwd_kernel, mm_dtype=mm_dtype, tile_b=tile_b,
+                          subtiles=tuple(jmsg._j_subtiles(nj))),
+        grid=(bp // tile_b,),
+        in_specs=[rows(ni, hm), rows(nj, hm), rows(ni, nj), rows(ni, nj), shared(1), shared(1),
+                  shared(hm), shared(1), rows(ni, hm)],
+        out_specs=[rows(ni, hm), rows(nj, hm), shared(1), shared(1), shared(hm), shared(1)],
+        out_shape=[jax.ShapeDtypeStruct(shape, jnp.float32) for shape in (
+            (bp, ni, hm), (bp, nj, hm), (1, hm), (1, hm), (hm, hm), (1, hm))],
+        interpret=True,
+    )(a_p, c_p, d2_p, w_p, wd.reshape(1, hm), b1.reshape(1, hm), w2, b2.reshape(1, hm), g_p)
+    return da[:b_sz, :n], dc[:b_sz, :n], dwd[0], db1[0], dw2, db2[0]
+
+
+@pytest.mark.parametrize("mm", ["float32", "bfloat16"])
+def test_plain_messages_backward_matches_pallas_backward_kernel_body(mm):
+    """The plain K4 against the TPU kernel body itself, in both modes. In
+    float32 the order of sums differs; in the bf16 mode both round e1, w2 and
+    dz2 at the same points, and a last-bit difference of a SiLU now and then
+    moves one of them to the neighbouring bf16 value (2^-8 relative)."""
+    args = _holes(_message_inputs(2, 12, 128, seed=9, live=(12, 7)))
+    g = np.random.default_rng(10).normal(size=(2, 12, 128)).astype(np.float32)
+    ref = _pallas_backward_interpret(*(jnp.asarray(x) for x in args), jnp.asarray(g),
+                                     getattr(jnp, mm))
+    mine = plain.egnn_messages_backward(*(_t(x) for x in args), _t(g),
+                                        mm_dtype=getattr(torch, mm))
+    for x, r in zip(mine, ref):
+        if mm == "float32":
+            _close(x, r, atol=1e-4, rtol=1e-3)
+        else:
+            _close(x, r, atol=2.0**-8 * float(np.abs(r).max()), rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_message_wrapper_is_differentiable_and_geometry_gets_no_gradient(dtype):
+    """On CPU tensors the wrapper's Function runs the plain K3 and K4: an
+    input that requires grad no longer raises, the six gradients arrive in
+    the inputs' dtypes and equal the plain backward's, d2 and w get none, and
+    nothing is launched."""
+    args = [_t(x).to(dtype) for x in _message_inputs(2, 6, 16, seed=11, live=(6, 4))]
+    for x in args:
+        x.requires_grad_(True)
+    g = _t(np.random.default_rng(12).normal(size=(2, 6, 16)).astype(np.float32)).to(dtype)
+    before = (kmsg.egnn_messages.launches, kmsg.egnn_messages.bwd_launches)
+    out = kmsg.egnn_messages(*args, mm_dtype=dtype)
+    assert out.grad_fn is not None and out.dtype == dtype
+    out.backward(g)
+    assert (kmsg.egnn_messages.launches, kmsg.egnn_messages.bwd_launches) == before
+    assert args[2].grad is None and args[3].grad is None
+    ref = plain.egnn_messages_backward(*(x.detach() for x in args), g, mm_dtype=dtype)
+    for i, r in zip(GRAD_ARGS, ref):
+        assert args[i].grad.dtype == dtype
+        _close(args[i].grad, r.to(dtype).float().numpy(), atol=0, rtol=0)
+
+
+# ------------------------------------------------- gradients of the encoder
+
+UNUSED_BY_POINTS = ("xformer.", "smiles_to_clip.", "point_clip_to_special_tokens.", ".coord_mlp.")
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["no_remat", "remat"])
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "dense"])
+def test_egnn_forward_gradients_match_jax(fused, remat):
+    """Gradients of a scalar loss of egnn_forward with respect to every
+    parameter of the encoder, through the message Function (fused) and
+    through the dense path, with and without rematerialization."""
+    jparams, jcfg, model, tcfg = model_pair(seed=13, n_layer_e3gnn=2, egnn_remat=remat)
+    atoms, coords = _points(len(COUNTS), 12, seed=14, counts=COUNTS)
+    g = np.random.default_rng(15).normal(size=(len(COUNTS), 16)).astype(np.float32)
+    jecfg = jcfg.egnn_config.replace(fused_messages=fused)
+    tecfg = tcfg.egnn_config.replace(fused_messages=fused)
+    assert tecfg.remat == remat and jecfg.remat == remat
+
+    def jloss(params):
+        pooled = jegnn.egnn_forward(params.point_encoder, jecfg, jnp.asarray(atoms),
+                                    jnp.asarray(coords))
+        return jnp.sum(pooled * g)
+
+    pooled = tegnn.egnn_forward(model.point_encoder, tecfg, _t(atoms), _t(coords))
+    (pooled * _t(g)).sum().backward()
+    compared = assert_gradients_match(model.named_parameters(), jax.grad(jloss)(jparams),
+                                      unused=UNUSED_BY_POINTS + ("point_to_clip.",))
+    assert compared == 2 * 8 + 2 + 4  # two layers' edge and node MLPs, embedding, decoder
+
+
+def test_encode_points_bf16_leaves_float32_gradients_on_the_masters():
+    """Under bf16 compute the cast of the parameters is one autograd
+    follows: a loss through encode_points leaves a non-zero float32 .grad on
+    every master parameter that the JAX gradient is non-zero for."""
+    jparams, jcfg, model, tcfg = model_pair(seed=16, n_layer_e3gnn=2)
+    atoms, coords = _points(4, 10, seed=17, counts=(10, 8, 5, 3))
+    g = np.random.default_rng(18).normal(size=(4, 32)).astype(np.float32)
+    half = tco.encode_points(model, tcfg.replace(dtype="bfloat16"), _t(atoms), _t(coords))
+    assert half.dtype == torch.bfloat16
+    (half.float() * _t(g)).sum().backward()
+    jgrads = jax.grad(lambda p: jnp.sum(
+        jco.encode_points(p, jcfg, jnp.asarray(atoms), jnp.asarray(coords)) * g))(jparams)
+    ref = jax_gradients_by_name(jgrads)
+    reached = 0
+    for name, p in model.named_parameters():
+        assert p.dtype == torch.float32
+        if not ref[name].any():
+            assert p.grad is None or not p.grad.any(), name
+            continue
+        assert p.grad is not None and p.grad.dtype == torch.float32 and p.grad.any(), name
+        # bf16 activations five roundings deep: the direction holds
+        cos = torch.nn.functional.cosine_similarity(p.grad.flatten(), _t(ref[name]).flatten(), dim=0)
+        assert cos > 0.95, (name, float(cos))
+        reached += 1
+    assert reached == 2 * 8 + 2 + 4 + 4  # the encoder's, and the projection's LayerNorm and Linear
 
 
 # ------------------------------------------------------------ small pieces

@@ -1,5 +1,5 @@
 """coati_tpu_torch stands alone: it and chip_smoke.py import nothing of
-JAX, flax or coati_tpu; without a GPU its entry points refuse to run
+JAX, flax, optax or coati_tpu; without a GPU its entry points refuse to run
 unless asked for the CPU; the kernel wrappers take their plain path only
 for CPU tensors, without launching anything; and importing the kernel
 build module builds nothing."""
@@ -14,10 +14,12 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "coati_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "coati_tpu")
 
 
 def _port_sources():
+    """Every module of the port (models, ops, tokenizers, data, training,
+    ...) and the smoke script."""
     return sorted((ROOT / "coati_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -40,6 +42,7 @@ def test_no_forbidden_imports(path):
 def test_importing_the_port_loads_no_jax_or_coati_tpu():
     code = (
         "import sys, coati_tpu_torch.models.api, coati_tpu_torch.models.io\n"
+        "import coati_tpu_torch.training.train, coati_tpu_torch.data\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(bad)\n"
@@ -100,7 +103,8 @@ def test_kernel_build_module_imports_without_nvcc(monkeypatch):
     importlib.reload(build)
     assert calls == []
     assert build.SOURCES == (
-        "flash_attention", "decode_attention", "egnn_messages", "packed_attention"
+        "flash_attention", "decode_attention", "egnn_messages", "packed_attention",
+        "egnn_messages_bwd", "packed_attention_bwd",
     )
     for name in build.SOURCES:
         assert (build.CSRC_DIR / f"{name}.cu").exists()
@@ -128,13 +132,22 @@ def test_kernel_input_checks_refuse_non_cuda_tensors():
 
 
 def test_message_kernel_refuses_inputs_that_require_grad():
-    """The message kernel is forward only: with autograd on, an input that
-    requires grad is refused before any launch."""
+    """The message kernel used to be forward only and refused an input that
+    requires grad. It is differentiable now: such an input is taken, the
+    output carries a grad_fn, a, c and the weights get a gradient, and the
+    pair geometry d2 and w get none."""
     from coati_tpu_torch.ops.kernels import egnn_messages as ke
 
-    a, w2 = torch.zeros(2, 3, 4), torch.zeros(4, 4, requires_grad=True)
-    with pytest.raises(RuntimeError, match="forward only"):
-        ke._check_no_grad((a, w2))
-    ke._check_no_grad((a, a))
-    with torch.no_grad():
-        ke._check_no_grad((a, w2))
+    assert not hasattr(ke, "_check_no_grad")
+    g = torch.Generator().manual_seed(0)
+    a, c = (torch.randn(2, 3, 4, generator=g, requires_grad=True) for _ in range(2))
+    d2, w = (torch.rand(2, 3, 3, generator=g, requires_grad=True) for _ in range(2))
+    wd, b1, b2 = (torch.randn(4, generator=g, requires_grad=True) for _ in range(3))
+    w2 = torch.randn(4, 4, generator=g, requires_grad=True)
+    out = ke.egnn_messages(a, c, d2, w, wd, b1, w2, b2)
+    assert out.grad_fn is not None
+    out.sum().backward()
+    for x in (a, c, wd, b1, w2, b2):
+        assert x.grad is not None and bool(x.grad.abs().sum() > 0)
+    assert d2.grad is None and w.grad is None
+    assert ke.egnn_messages.launches == 0 and ke.egnn_messages.bwd_launches == 0

@@ -1,6 +1,7 @@
 """coati_tpu_torch ops against coati_tpu on the CPU: layers, rotary, the
-plain attention functions, the two kernels' CPU paths (against the Pallas
-kernels in interpret mode), int8 KV quantization and top-k sampling.
+plain attention functions, the kernels' CPU paths (against the Pallas
+kernels in interpret mode), the plain attention backward and the gradients
+through the attention wrappers, int8 KV quantization and top-k sampling.
 
 Inputs come from numpy seeds and go to both packages. Shared tolerance,
 as in the repo's parity tests: atol 3e-5, rtol 1e-4 (float32 summation
@@ -22,6 +23,7 @@ from coati_tpu.ops.pallas.decode_attention import (
     decode_attention_pallas_quant,
 )
 from coati_tpu.ops.pallas.flash_attention import flash_causal_attention as jax_flash
+from coati_tpu.ops.pallas.packed_attention import _packed_backward as jax_packed_backward
 from coati_tpu.ops.pallas.packed_attention import packed_causal_attention as jax_packed
 
 from coati_tpu_torch.models.transformer import quantize_kv
@@ -158,6 +160,96 @@ def test_flash_cpu_path_takes_strided_views():
     assert not v.is_contiguous()
     ref = jatt.causal_attention(*(x.contiguous().numpy() for x in (q, k, v)), HIGHEST)
     _close(kflash.flash_causal_attention(q, k, v), ref)
+
+
+# ------------------------------------------------------ attention backward
+
+
+def _qkvg(seed, b, t, h, dh):
+    return tuple(_normal(seed + i, b, t, h, dh) for i in range(4))
+
+
+@pytest.mark.parametrize(
+    "shape", [(3, 80, 16, 16), (2, 128, 8, 16), (5, 17, 4, 32)], ids=lambda s: "x".join(map(str, s))
+)
+def test_plain_attention_backward_matches_pallas_backward_kernel(shape):
+    """The plain version of K5b against the TPU backward kernel run in
+    interpret mode, as tests/test_pallas_packed.py runs it, in float32."""
+    q, k, v, g = _qkvg(30, *shape)
+    ref = jax_packed_backward(*(jnp.asarray(x) for x in (q, k, v, g)), interpret=True)
+    mine = tatt.causal_attention_backward(_t(q), _t(k), _t(v), _t(g))
+    for x, r in zip(mine, ref):
+        assert x.shape == shape and x.dtype == torch.float32
+        _close(x, r)
+
+
+def test_plain_attention_backward_bf16_matches_pallas_backward_kernel():
+    """In bf16 both round dS to bf16 before dq and dk, and P before dv, and
+    accumulate in float32; what differs is the last float32 bit of P and dS
+    before that rounding, and the rounding of the result: 2 bf16 ulps
+    (2^-7 relative) of gradients that reach about 4 here."""
+    q, k, v, g = _qkvg(34, 2, 48, 8, 16)
+    jargs = [jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, g)]
+    ref = jax_packed_backward(*jargs, interpret=True)
+    mine = tatt.causal_attention_backward(*(_t(x).bfloat16() for x in (q, k, v, g)))
+    for x, r in zip(mine, ref):
+        assert x.dtype == torch.bfloat16
+        r = np.asarray(r.astype(jnp.float32))
+        _close(x, r, atol=2 * 2.0**-7 * np.abs(r).max(), rtol=0)
+
+
+@pytest.mark.parametrize("shape", [(3, 33, 4, 16), (2, 7, 2, 64)], ids=["T33", "T7"])
+def test_plain_attention_backward_matches_autograd_and_is_chunk_invariant(shape):
+    """The explicit formula against torch.autograd through the plain
+    forward; walking the batch row by row changes nothing."""
+    q, k, v, g = (_t(x) for x in _qkvg(40, *shape))
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    ref = torch.autograd.grad(tatt.causal_attention(*leaves, torch.float32), leaves, g)
+    mine = tatt.causal_attention_backward(q, k, v, g)
+    rows = tatt.causal_attention_backward(q, k, v, g, chunk_bytes=1)
+    for x, y, r in zip(mine, rows, ref):
+        _close(x, r.numpy(), atol=1e-5, rtol=1e-4)
+        _close(y, x.numpy(), atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["plain", "checkpoint"])
+@pytest.mark.parametrize("kernel", ["packed", "flash"])
+def test_attention_wrappers_gradients_match_jax(kernel, remat):
+    """torch.autograd.grad through the K5f and K2 wrappers on CPU tensors
+    (their Functions run the plain backward) against jax.grad through the
+    TPU packed kernel in interpret mode, whose VJP is its backward kernel,
+    and through the plain JAX attention for K2; also when the call is
+    rematerialized. torch.autograd.gradcheck is no option: it wants float64
+    and the kernels take float32 and bfloat16 only."""
+    from torch.utils.checkpoint import checkpoint
+
+    q, k, v, g = _qkvg(50, 2, 40, 8, 16)
+    if kernel == "packed":
+        wrapper = kpacked.packed_causal_attention
+        jfn = lambda q, k, v: jax_packed(q, k, v, True)  # noqa: E731
+    else:
+        wrapper = kflash.flash_causal_attention
+        jfn = lambda q, k, v: jatt.causal_attention(q, k, v, HIGHEST, jnp.float32)  # noqa: E731
+    if remat:
+        jfn = jax.checkpoint(jfn)
+    ref = jax.grad(lambda q, k, v: jnp.sum(jfn(q, k, v) * g), argnums=(0, 1, 2))(
+        *(jnp.asarray(x) for x in (q, k, v)))
+    # strided views of one fused projection, as the model passes them
+    qkv = torch.cat([_t(x).reshape(2, 40, 128) for x in (q, k, v)], dim=-1).requires_grad_(True)
+    tq, tk, tv = (x.view(2, 40, 8, 16) for x in qkv.split(128, dim=-1))
+    before = (wrapper.launches, kpacked.packed_causal_attention.bwd_launches)
+    out = checkpoint(wrapper, tq, tk, tv, use_reentrant=False) if remat else wrapper(tq, tk, tv)
+    assert out.grad_fn is not None
+    (dqkv,) = torch.autograd.grad(out, qkv, _t(g))
+    assert (wrapper.launches, kpacked.packed_causal_attention.bwd_launches) == before
+    for x, r in zip(dqkv.split(128, dim=-1), ref):
+        _close(x.reshape(2, 40, 8, 16), r)
+
+
+def test_packed_backward_refuses_long_sequences():
+    q = _t(_normal(60, 1, 129, 8, 16))
+    with pytest.raises(ValueError, match="T <= 128, got T=129"):
+        kpacked.packed_causal_attention_backward(q, q, q, q)
 
 
 T_CACHE = 64  # a multiple of 8, so the Pallas kernel really runs

@@ -1,6 +1,9 @@
 """coati_tpu_torch transformer against coati_tpu on the CPU, at 2-3
-layers, widths 64 and 128, 4 heads: the full forward and encode, and
-prefill followed by decode steps, logits and KV cache (float32 and int8).
+layers, widths 64 and 128, 4 heads: the full forward and encode, the
+training forward to logits with the gradient of every parameter (both
+attention routes, with and without rematerialization, and bf16 over float32
+masters), and prefill followed by decode steps, logits and KV cache (float32
+and int8).
 
 Same weights (JAX init, carried across by convert.py) and the same numpy
 tokens in both. Tolerance atol 3e-5, rtol 1e-4 (float32 summation order)
@@ -64,6 +67,75 @@ def test_forward_hidden_and_encode_match_jax(n_layer, n_embd, norm_embed):
         ttr.encode(model, tcfg, torch.tensor(toks), STOP),
         jtr.encode(jparams, jcfg, jnp.asarray(toks), STOP),
     )
+
+
+def _transformer_grads(jgrads):
+    state = transformer_state_from_coati_tpu(params_to_state(jgrads))
+    return {k: v.numpy() for k, v in state.items()}
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["no_remat", "remat"])
+@pytest.mark.parametrize("route", ["packed", "auto"], ids=["packed_K5", "flash_K2"])
+def test_forward_logits_values_and_gradients_match_jax(route, remat):
+    """forward_logits and forward_with_stop_emb with an injected clip token,
+    and the gradients of a scalar loss with respect to every parameter and
+    to the injection, through either attention Function, with and without
+    per-block rematerialization (torch.utils.checkpoint against
+    jax.checkpoint)."""
+    jparams, jcfg, model, tcfg = _pair(2, 64, seed=9, remat=remat)
+    model.requires_grad_(True)
+    tcfg = tcfg.replace(prefill_kernel=route)
+    toks = _tokens(3, 20, tcfg.n_tok, seed=10)
+    rng = np.random.default_rng(11)
+    inj = rng.normal(size=(3, 64)).astype(np.float32)
+    g = rng.normal(size=(3, 20, tcfg.n_tok)).astype(np.float32)
+    gs = rng.normal(size=(3, 64)).astype(np.float32)
+
+    def jloss(params, injection):
+        logits, stop = jtr.forward_with_stop_emb(params, jcfg, jnp.asarray(toks), STOP,
+                                                 injection, UNK)
+        return jnp.sum(logits * g) + jnp.sum(stop * gs), (logits, stop)
+
+    (_, (jlogits, jstop)), (jgrads, jdinj) = jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True)(jparams, jnp.asarray(inj))
+    tinj = torch.tensor(inj, requires_grad=True)
+    logits, stop = ttr.forward_with_stop_emb(model, tcfg, torch.tensor(toks), STOP, tinj, UNK)
+    _close(logits.detach(), jlogits)
+    _close(stop.detach(), jstop)
+    _close(ttr.forward_logits(model, tcfg, torch.tensor(toks), tinj, UNK).detach(), jlogits)
+    ((logits * torch.tensor(g)).sum() + (stop * torch.tensor(gs)).sum()).backward()
+    ref = _transformer_grads(jgrads)
+    names = [n for n, _ in model.named_parameters()]
+    assert sorted(names) == sorted(ref)
+    for name, p in model.named_parameters():
+        # sums over 60 tokens and 40 logits each
+        np.testing.assert_allclose(p.grad.numpy(), ref[name], atol=1e-4, rtol=1e-4, err_msg=name)
+    _close(tinj.grad, jdinj, atol=1e-4)
+
+
+def test_encode_bf16_leaves_float32_gradients_on_the_masters():
+    """Under bf16 compute a loss through encode reaches the float32 master
+    parameters: each gets a non-zero float32 .grad that points the way of
+    the float32 gradient (bf16 activations through two blocks), apart from
+    lm_head, which encode does not use."""
+    _, _, model, tcfg = _pair(2, 64, seed=12)
+    model.requires_grad_(True)
+    toks = torch.tensor(_tokens(3, 20, tcfg.n_tok, seed=13))
+    g = torch.tensor(np.random.default_rng(14).normal(size=(3, 64)).astype(np.float32))
+    (ttr.encode(model, tcfg, toks, STOP) * g).sum().backward()
+    full = {n: p.grad.clone() for n, p in model.named_parameters() if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    half = ttr.encode(model, tcfg.replace(dtype="bfloat16"), toks, STOP)
+    assert half.dtype == torch.bfloat16
+    (half.float() * g).sum().backward()
+    for name, p in model.named_parameters():
+        assert p.dtype == torch.float32
+        if name == "lm_head.weight":
+            assert p.grad is None
+            continue
+        assert p.grad is not None and p.grad.dtype == torch.float32 and p.grad.any(), name
+        cos = torch.nn.functional.cosine_similarity(p.grad.flatten(), full[name].flatten(), dim=0)
+        assert cos > 0.98, (name, float(cos))
 
 
 def test_packed_prefill_kernel_raises_and_bad_fields_are_rejected():
