@@ -9,12 +9,16 @@ also appended to that file.
 Phases, in order; any failure ends the run with a non-zero exit:
 
  1. build: nvcc builds every kernel under coati_tpu_torch/csrc for sm_90a,
-    one process per source, all at once.
+    one process per source, all at once; ptxas's registers and spills of
+    each kernel are reported, and the bf16 attention kernels must not spill.
  2. kernels: each kernel against its plain PyTorch version on the card, on
-    the main paths' shapes, within a stated tolerance; each timed with CUDA
-    events (median of 25 launches after warm-up, L2 flushed before each),
-    beside its bound and, where one PyTorch call computes the same
-    function, that call (a yardstick only: the port never calls it).
+    the main paths' shapes (for K2 and K5f also the edges of their tiles,
+    the other head sizes and the trainer's shapes), within a stated
+    tolerance; each timed with CUDA events (median of 25 launches after
+    warm-up, L2 flushed before each, the host's launch hidden behind a spin
+    on the card), beside its bound and, where one PyTorch call computes the
+    same function, that call (a yardstick only: the port never calls it);
+    K2 and K5f also beside the floor of their exponentials.
  3. paths: the trained grande document docs/eval_model_r5.pkl on the card,
     through the user entry points. Each path starts with every kernel's
     launch count set to 0 and ends by reading the counts; runs through the
@@ -52,7 +56,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
 
 Every number printed is measured in this run, on this card, except the
 bounds, which are computed from this run's shapes and the card's published
-peaks (H100 SXM: 3.35 TB/s; 989 TFLOP/s bf16; 67 TFLOP/s fp32).
+peaks (H100 SXM: 3.35 TB/s; 989 TFLOP/s bf16; 67 TFLOP/s fp32; 16
+special-function results a clock on each of 132 SMs, at the highest SM
+clock that nvidia-smi reports).
 """
 
 from __future__ import annotations
@@ -61,6 +67,7 @@ import contextlib
 import gzip
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -77,6 +84,8 @@ CORPUS = ROOT / "corpora" / "chembl_synth_v1.smi.gz"
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 BF16_ULP = 2.0**-7  # spacing of bf16 values in [1, 2)
+# special-function results (ex2) a clock: 16 on each of an H100's 132 SMs
+SFU_RESULTS_PER_CLOCK = 132 * 16
 
 # the SMILES of bench.py, the JAX package's throughput workload
 BENCH_SMILES = [
@@ -121,7 +130,10 @@ _FLUSH = None
 
 def time_ms(fn, n: int = 25, warmup: int = 3) -> float:
     """Median device time of fn() in ms, by CUDA events around each call,
-    with a 256 MB write before each to evict the 50 MB L2."""
+    with a 256 MB write before each to evict the 50 MB L2. A spin of about
+    0.1 ms on the card follows the write, so that the host has enqueued
+    the start event and fn's kernels before the card reaches them: the
+    time between the events is the card's, not the host's launch."""
     global _FLUSH
     if _FLUSH is None:
         _FLUSH = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
@@ -130,6 +142,7 @@ def time_ms(fn, n: int = 25, warmup: int = 3) -> float:
     events = []
     for _ in range(n):
         _FLUSH.zero_()
+        torch.cuda._sleep(200_000)  # clock cycles
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -147,6 +160,41 @@ def bound_ms(n_bytes: float, n_ops: float, dtype: torch.dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+_SM_CLOCK_HZ = None
+
+
+def sm_clock_hz() -> float:
+    """The card's highest SM clock, as nvidia-smi reports it."""
+    global _SM_CLOCK_HZ
+    if _SM_CLOCK_HZ is None:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, check=True,
+        )
+        _SM_CLOCK_HZ = float(out.stdout.split()[0]) * 1e6
+    return _SM_CLOCK_HZ
+
+
+def attention_exps(name: str, dtype: torch.dtype, b: int, t: int, h: int) -> int:
+    """Exponentials one call of K2 or K5f takes, counted at the kernel's
+    tile granularity. bf16 bodies: K2 takes one per (query, key) of each
+    warp's 16 rows and the 16-key chunks it computes (all of every key tile
+    below the diagonal, those up to its last row on it), and two a lane per
+    key tile to rescale; K5f one per (query, key) of its 16 x 16 tiles on
+    and below the diagonal. The float32 bodies take one per causal pair."""
+    if dtype == torch.float32:
+        return b * h * t * (t + 1) // 2
+    n = 0
+    if name == "flash_causal_attention":
+        for i in range(-(-t // 64)):
+            for w in range(4):
+                if 64 * i + 16 * w < t:
+                    n += 16 * (64 * i + 16 * (w + 1)) + 64 * (i + 1)
+    else:
+        n = sum(16 * 16 * (i + 1) for i in range(-(-t // 16)))
+    return b * h * n
+
+
 def tolerance(ref: torch.Tensor, dtype: torch.dtype, fp32_tol: float) -> float:
     """bf16 output: 2 bf16 ulps of the output scale (rounding of the output
     and of the plain version's bf16 scores and probs); float32: fp32_tol
@@ -159,16 +207,51 @@ def tolerance(ref: torch.Tensor, dtype: torch.dtype, fp32_tol: float) -> float:
 # -------------------------------------------------------------- phases
 
 
+def _kernel_label(mangled: str) -> str:
+    """A kernel's name and template arguments from its mangled symbol:
+    packed_causal_bf16_kernel<16,8> for ..25packed_causal_bf16_kernelILi16ELi8EEEv..."""
+    # every digit run that could be a length prefix, suffixes of runs too
+    for m in re.finditer(r"(?=(\d+)[A-Za-z_])", mangled):
+        start = m.start() + len(m.group(1))
+        name = mangled[start:start + int(m.group(1))]
+        if name.endswith("_kernel"):
+            args = re.match(r"I(.*?)EEv", mangled[start + len(name):])
+            if not args:
+                return name
+            text = re.sub(r"L[a-z](\d+)E", r"\1,", args.group(1).replace("13__nv_bfloat16", "bf16,"))
+            return f"{name}<{re.sub(r'^f', 'f32,', text).rstrip(',')}>"
+    return mangled
+
+
+def ptxas_usage(log: str) -> dict:
+    """{kernel: {"registers": n, "spill_bytes": stores + loads}} from the
+    -Xptxas -v output of one nvcc run."""
+    usage, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"entry function '(\S+)'", line)
+        if m:
+            name = _kernel_label(m.group(1))
+            usage[name] = {}
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            usage[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            usage[name]["registers"] = int(m.group(1))
+    return usage
+
+
 def phase_build():
     from coati_tpu_torch.ops.kernels import build
 
     seconds = build.build()
-    for name, log in build.BUILD_LOG.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"ptxas {name}: {line.strip()}")
+    usage = {name: ptxas_usage(log) for name, log in build.BUILD_LOG.items()}
     emit({"phase": "build", "sources": list(build.SOURCES), "seconds": round(seconds, 2),
-          "arch": "sm_90a"})
+          "arch": "sm_90a", "ptxas": usage})
+    # the tensor-core attention bodies keep their scores in registers: a
+    # spill would put them in local memory
+    spilled = [k for src in ("flash_attention", "packed_attention")
+               for k, u in usage.get(src, {}).items()
+               if "bf16" in k and u.get("spill_bytes", 0) > 0]
+    check(not spilled, f"bf16 attention kernels spill registers: {spilled}")
 
 
 def _attention_case(name, b, t, h, dh, dtype, gen):
@@ -191,6 +274,7 @@ def _attention_case(name, b, t, h, dh, dtype, gen):
     tol = tolerance(ref, dtype, 1e-5)
     elt = torch.finfo(dtype).bits // 8
     bound, by = bound_ms(4 * b * t * h * dh * elt, 4 * b * h * (t * (t + 1) // 2) * dh, dtype)
+    exps = attention_exps(name, dtype, b, t, h)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     case = {
         "kernel": name, "shape": [b, t, h, dh], "dtype": str(dtype)[6:],
@@ -201,7 +285,12 @@ def _attention_case(name, b, t, h, dh, dtype, gen):
         "library_ms": time_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
         ),
+        # the exponentials' floor on the special-function units, at the
+        # highest SM clock
+        "exps": exps, "sm_clock_mhz": sm_clock_hz() / 1e6,
+        "exp_floor_ms": exps / (SFU_RESULTS_PER_CLOCK * sm_clock_hz()) * 1e3,
     }
+    case["vs_library"] = case["ms"] / case["library_ms"]
     if kernel is packed_causal_attention:
         case["k2_ms"] = time_ms(lambda: flash_causal_attention(q, k, v))
     return case
@@ -409,29 +498,45 @@ def _decode_case(b, t, h, dh, pos, q_dtype, kv, gen):
     }
 
 
+def attention_cases(gen):
+    """K2 and K5f against their plain version: the main paths' shapes, the
+    edges of the bf16 bodies' tiles (64 keys and 16 query rows for K2,
+    16 x 16 for K5f), the other head sizes and the trainer's shapes."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    k2, k5f = "flash_causal_attention", "packed_causal_attention"
+    shapes = [
+        (k2, 1024, 96, 16, 16, bf16),
+        (k2, 1024, 96, 16, 16, f32),
+        (k2, 1024, 250, 16, 16, bf16),
+        (k2, 1024, 250, 16, 16, f32),
+        (k2, 1024, 3, 16, 16, bf16),  # prefill of [CLIP][UNK][SMILES]
+        (k2, 3, 37, 4, 32, f32),
+        (k2, 3, 37, 4, 32, bf16),
+        (k2, 2, 70, 2, 64, f32),
+        *[(k2, 64, t, 16, 16, bf16) for t in (1, 16, 17, 64, 65, 127, 128, 250)],
+        (k2, 4, 250, 8, 32, bf16),
+        (k2, 4, 250, 4, 64, bf16),
+        (k5f, 1024, 96, 16, 16, bf16),
+        (k5f, 1024, 96, 16, 16, f32),
+        (k5f, 1024, 3, 16, 16, bf16),
+        (k5f, 1024, 128, 16, 16, bf16),
+        (k5f, 1024, 128, 16, 16, f32),
+        (k5f, 3, 37, 4, 32, f32),
+        (k5f, 2, 70, 2, 64, bf16),
+        *[(k5f, 16, t, h, dh, bf16) for t in (1, 17, 65, 127)
+          for h, dh in ((8, 16), (4, 32), (6, 64))],
+        (k5f, 160, 48, 16, 16, bf16),  # the trainer's batches
+        (k5f, 160, 80, 16, 16, bf16),
+    ]
+    return [_attention_case(*shape, gen) for shape in shapes]
+
+
 def phase_kernels():
     """Every kernel against its plain version; returns the case of each
     kernel at the production shape, for the report."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf16, f32 = torch.bfloat16, torch.float32
-    k2, k5f = "flash_causal_attention", "packed_causal_attention"
-    cases = [
-        _attention_case(k2, 1024, 96, 16, 16, bf16, gen),
-        _attention_case(k2, 1024, 96, 16, 16, f32, gen),
-        _attention_case(k2, 1024, 250, 16, 16, bf16, gen),
-        _attention_case(k2, 1024, 250, 16, 16, f32, gen),
-        _attention_case(k2, 1024, 3, 16, 16, bf16, gen),  # prefill of [CLIP][UNK][SMILES]
-        _attention_case(k2, 3, 37, 4, 32, f32, gen),
-        _attention_case(k2, 3, 37, 4, 32, bf16, gen),
-        _attention_case(k2, 2, 70, 2, 64, f32, gen),
-        _attention_case(k5f, 1024, 96, 16, 16, bf16, gen),
-        _attention_case(k5f, 1024, 96, 16, 16, f32, gen),
-        _attention_case(k5f, 1024, 3, 16, 16, bf16, gen),
-        _attention_case(k5f, 1024, 128, 16, 16, bf16, gen),
-        _attention_case(k5f, 1024, 128, 16, 16, f32, gen),
-        _attention_case(k5f, 3, 37, 4, 32, f32, gen),
-        _attention_case(k5f, 2, 70, 2, 64, bf16, gen),
-    ]
+    cases = attention_cases(gen)
     # K5b: the trainer's batch at its widest, the inference batch at the
     # widths K5f serves, and ragged shapes at the other head sizes
     for dtype in (bf16, f32):

@@ -3,7 +3,7 @@
 Each source compiles with nvcc, on its own, into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds), which
 ctypes loads. Builds happen at first use, never at import, and are keyed
-on a hash of the source, the shared header and the flags: an edited
+on a hash of the source, the shared headers and the flags: an edited
 source rebuilds, an unchanged one loads from coati_tpu_torch/_build/
 (listed in .gitignore). `build()` compiles several sources in parallel,
 one nvcc process each.
@@ -29,7 +29,7 @@ SOURCES = (
     "flash_attention", "decode_attention", "egnn_messages", "packed_attention",
     "egnn_messages_bwd", "packed_attention_bwd",
 )
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "mma.cuh")  # every header a source includes: hashed into each library
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -39,7 +39,8 @@ NVCC_FLAGS = (
 # element-type codes of the C entry points (csrc/common.cuh, coati::DType)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
-# nvcc's output of the last build of each source (ptxas resource usage)
+# nvcc's output of the build of each source that was built or loaded
+# (ptxas resource usage), also kept beside each library as <library>.log
 BUILD_LOG: Dict[str, str] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -74,6 +75,8 @@ def build(names: Sequence[str] = SOURCES) -> float:
     for name in names:
         target = library_path(name)
         if target.exists():
+            log = target.with_suffix(".log")
+            BUILD_LOG[name] = log.read_text() if log.exists() else ""
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
@@ -87,6 +90,7 @@ def build(names: Sequence[str] = SOURCES) -> float:
         if proc.returncode != 0:
             failures.append(f"{name}.cu (exit {proc.returncode}):\n{out}")
             continue
+        target.with_suffix(".log").write_text(out)
         os.replace(tmp, target)  # atomic: a concurrent loader sees all or nothing
     if failures:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failures))

@@ -1,10 +1,15 @@
 """K2: fused causal attention, wrapper of csrc/flash_attention.cu.
 
 Replaces the TPU kernel coati_tpu/ops/pallas/flash_attention.py
-(flash_causal_attention, _flash_forward, _attn_kernel). On an H100 it is
-bound by bytes: it reads q, k, v and writes o once, and keeps the
-(B, H, T, T) scores out of device memory; the design note is at the top
-of the CUDA source.
+(flash_causal_attention, _flash_forward, _attn_kernel). It reads q, k, v
+and writes o once, and keeps the (B, H, T, T) scores out of device memory;
+the design note is at the top of the CUDA source. The input dtype picks
+the body, inside the one entry point: bfloat16 runs on the tensor cores
+(mma.sync, cp.async; P rounded to bf16 before P V, as on the TPU), float32
+on CUDA cores in full float32 (the fidelity runs, held to 1e-5, which TF32
+cannot meet). The bf16 body copies 16 bytes at a time, so it takes only
+16-byte aligned q, k, v base pointers and batch and token strides
+(`check_aligned`), as the model's views of its fused qkv projection are.
 
 For a CPU tensor the wrapper runs the plain version,
 ops/attention.causal_attention with a float32 softmax, which is what the
@@ -81,11 +86,31 @@ def check_qkv(
             )
 
 
+def check_aligned(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str = "flash_causal_attention"
+) -> None:
+    """Raise on bfloat16 q, k, v that the tensor-core bodies (this kernel's
+    and the short-sequence one's) cannot copy 16 bytes at a time: a base
+    pointer, or a batch or token stride in bytes, that is not a multiple of
+    16. float32 runs on CUDA cores and takes any strides."""
+    if q.dtype != torch.bfloat16:
+        return
+    for arg, x in (("q", q), ("k", k), ("v", v)):
+        elt = x.element_size()
+        if x.data_ptr() % 16 or (x.stride(0) * elt) % 16 or (x.stride(1) * elt) % 16:
+            raise ValueError(
+                f"{name}: bf16 {arg} needs a 16-byte aligned base and batch and token "
+                f"strides of a multiple of 16 bytes, got address {x.data_ptr()} and "
+                f"strides {x.stride()}"
+            )
+
+
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """K2 on CUDA tensors, its plain version on CPU tensors."""
     if q.device.type == "cpu":
         return causal_attention(q, k, v, softmax_dtype=torch.float32)
     check_qkv(q, k, v)
+    check_aligned(q, k, v)
     b, t, h, dh = q.shape
     out = torch.empty((b, t, h, dh), dtype=q.dtype, device=q.device)
     err = _library()(

@@ -7,8 +7,13 @@ packed_causal_attention with _packed_forward / _packed_kernel (K5f) and its
 VJP _packed_backward / _packed_bwd_kernel (K5b). Same function and interface
 as K2 (ops/kernels/flash_attention.py); what differs is that a block stages
 the K and V of its heads once, whole, and a query row's scores are complete
-before its softmax. On an H100 both are bound by bytes; the design notes are
-at the top of the CUDA sources.
+before its softmax. On an H100 both are bound by bytes; the design notes
+are at the top of the CUDA sources.
+As in K2, the input dtype picks K5f's body inside its one entry point:
+bfloat16 on the tensor cores (P normalized, then rounded to bf16 before
+P V, as on the TPU; 16-byte aligned q, k, v, see
+flash_attention.check_aligned), float32 on CUDA cores. K5b runs on CUDA
+cores in both dtypes.
 
 `packed_causal_attention` goes through `PackedCausalAttention`, a
 torch.autograd.Function: the forward is K5f and saves q, k, v (not the
@@ -29,11 +34,19 @@ import torch
 
 from coati_tpu_torch.ops.attention import causal_attention, causal_attention_backward
 from coati_tpu_torch.ops.kernels import build
-from coati_tpu_torch.ops.kernels.flash_attention import check_qkv
+from coati_tpu_torch.ops.kernels.flash_attention import check_aligned, check_qkv
 
 MAX_T = 128
 MAX_SHARED_BYTES = 232448  # what one block may ask for on an H100
-GROUP_BYTES = 28 * 1024  # staged K and V per block: eight blocks fill an SM's 64 warps
+# staged K and V per block. float32: eight blocks of 8 warps fill an SM's
+# 64 warps. bfloat16: blocks of 4 warps, which take the group's 16-row
+# query tiles in pairs (i, n-1-i) of equal causal work, at most three
+# pairs a warp: enough to share a block's staging, few enough that the
+# blocks spread over the card (the fastest groups measured at T 32-128 on
+# an H100 by scripts/torch_attention_variants.py; PERF.md)
+GROUP_BYTES = {torch.float32: 28 * 1024, torch.bfloat16: 24 * 1024}
+TC_WARPS = 4
+MAX_PAIRS_PER_WARP = 3
 _ARGTYPES = (
     [ctypes.c_void_p] * 4
     + [ctypes.c_int] * 6
@@ -54,7 +67,7 @@ def _library():
     lib = build.load("packed_attention")
     lib.packed_causal_attention.argtypes = _ARGTYPES
     lib.packed_causal_attention.restype = ctypes.c_int
-    lib.packed_causal_attention_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.packed_causal_attention_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.packed_causal_attention_smem_bytes.restype = ctypes.c_longlong
     return lib
 
@@ -68,12 +81,33 @@ def _bwd_library():
     return lib
 
 
-def head_group(t: int, h: int, dh: int) -> int:
-    """Heads per block: the largest divisor of H whose staged K and V
-    (float32, rows of Dh + 1) stay under GROUP_BYTES; at least one."""
-    per_head = 2 * t * (dh + 1) * 4
-    fits = [g for g in range(1, h + 1) if h % g == 0 and g * per_head <= GROUP_BYTES]
-    return max(fits, default=1)
+def staged_bytes(t: int, dh: int, dtype: torch.dtype) -> int:
+    """Shared memory that K5f stages for one head: K and V, in float32 with
+    rows of Dh + 1, or in bfloat16 with T rounded up to 16 (the tensor
+    cores' row tile)."""
+    if dtype == torch.bfloat16:
+        return 2 * (-(-t // 16) * 16) * dh * 2
+    return 2 * t * (dh + 1) * 4
+
+
+def tile_pairs(t: int) -> int:
+    """Pairs of 16-row query tiles (i, n-1-i) of one head in the bf16 body;
+    the middle tile of an odd count is a pair alone."""
+    return (-(-t // 16) + 1) // 2
+
+
+def head_group(t: int, h: int, dh: int, dtype: torch.dtype) -> int:
+    """Heads per block: the largest divisor of H whose staged K and V stay
+    under GROUP_BYTES[dtype] and, in bfloat16, whose tile pairs give each
+    warp at most MAX_PAIRS_PER_WARP; at least one."""
+    per_head = staged_bytes(t, dh, dtype)
+
+    def fits(g: int) -> bool:
+        if h % g or g * per_head > GROUP_BYTES[dtype]:
+            return False
+        return dtype != torch.bfloat16 or g * tile_pairs(t) <= MAX_PAIRS_PER_WARP * TC_WARPS
+
+    return max((g for g in range(1, h + 1) if fits(g)), default=1)
 
 
 def _check_t(q: torch.Tensor) -> None:
@@ -86,10 +120,11 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     if q.device.type == "cpu":
         return causal_attention(q, k, v, softmax_dtype=torch.float32)
     check_qkv(q, k, v, "packed_causal_attention")
+    check_aligned(q, k, v, "packed_causal_attention")
     b, t, h, dh = q.shape
-    group = head_group(t, h, dh)
+    group = head_group(t, h, dh, q.dtype)
     lib = _library()
-    need = lib.packed_causal_attention_smem_bytes(t, group, dh)
+    need = lib.packed_causal_attention_smem_bytes(t, group, dh, build.DTYPE_CODES[q.dtype])
     if need > MAX_SHARED_BYTES:
         raise ValueError(
             f"packed_causal_attention: T {t}, Dh {dh} need {need} bytes of shared memory "

@@ -111,6 +111,28 @@ def test_kernel_build_module_imports_without_nvcc(monkeypatch):
         assert build.library_path(name).parent == build.BUILD_DIR
 
 
+def test_every_included_header_is_hashed_into_the_build():
+    """A library is keyed on its source, build.HEADERS and the flags: every
+    header that a source (or a header) includes must be in build.HEADERS,
+    or an edit to it would leave a stale library to be loaded."""
+    import re
+
+    from coati_tpu_torch.ops.kernels import build
+
+    files = sorted(build.CSRC_DIR.glob("*.cu")) + sorted(build.CSRC_DIR.glob("*.cuh"))
+    included = {
+        (path.name, name)
+        for path in files
+        for name in re.findall(r'^\s*#\s*include\s+"([^"]+)"', path.read_text(), re.M)
+    }
+    assert {name for _, name in included} >= {"common.cuh", "mma.cuh"}
+    missing = sorted((src, name) for src, name in included if name not in build.HEADERS)
+    assert not missing, f"included but not hashed into the build: {missing}"
+    for name in build.HEADERS:
+        assert (build.CSRC_DIR / name).exists()
+    assert sorted(p.name for p in build.CSRC_DIR.glob("*.cuh")) == sorted(build.HEADERS)
+
+
 def test_kernel_input_checks_refuse_non_cuda_tensors():
     """The checks that run before a launch refuse a tensor that is not on a
     CUDA device (here, meta tensors) instead of routing it anywhere else."""

@@ -7,6 +7,8 @@ Inputs come from numpy seeds and go to both packages. Shared tolerance,
 as in the repo's parity tests: atol 3e-5, rtol 1e-4 (float32 summation
 order); lines that differ say why."""
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -142,13 +144,123 @@ def test_packed_refuses_long_sequences_and_picks_head_groups():
     with pytest.raises(ValueError, match="packed_causal_attention: q, k, v must lie on one CUDA"):
         kflash.check_qkv(meta, meta, meta, "packed_causal_attention")
     # heads per block: a divisor of H whose staged K and V stay under 28 KB
-    assert kpacked.head_group(96, 16, 16) == 2
-    assert kpacked.head_group(128, 16, 16) == 1
-    assert kpacked.head_group(3, 16, 16) == 16
-    assert kpacked.head_group(128, 2, 64) == 1  # one head is above it: still one
+    # in float32 (rows of Dh + 1 floats) ...
+    f32, bf16 = torch.float32, torch.bfloat16
+    assert kpacked.head_group(96, 16, 16, f32) == 2
+    assert kpacked.head_group(128, 16, 16, f32) == 1
+    assert kpacked.head_group(3, 16, 16, f32) == 16
+    assert kpacked.head_group(128, 2, 64, f32) == 1  # one head is above it: still one
     for t, h, dh in ((96, 16, 16), (37, 4, 32), (128, 12, 16)):
-        g = kpacked.head_group(t, h, dh)
-        assert h % g == 0 and (g == 1 or g * 2 * t * (dh + 1) * 4 <= kpacked.GROUP_BYTES)
+        g = kpacked.head_group(t, h, dh, f32)
+        assert h % g == 0 and (g == 1 or g * 2 * t * (dh + 1) * 4 <= kpacked.GROUP_BYTES[f32])
+    # ... and in bf16 under 24 KB (T rounded up to the tensor cores' 16
+    # rows) with at most three pairs of 16-row tiles for each of 4 warps
+    assert kpacked.staged_bytes(128, 16, bf16) == 8192  # 4 KB a head a tensor
+    assert kpacked.staged_bytes(97, 16, bf16) == kpacked.staged_bytes(112, 16, bf16)
+    assert [kpacked.tile_pairs(t) for t in (1, 16, 17, 48, 80, 96, 128)] == [1, 1, 1, 2, 3, 3, 4]
+    assert kpacked.head_group(96, 16, 16, bf16) == 4
+    assert kpacked.head_group(128, 16, 16, bf16) == 2
+    assert kpacked.head_group(48, 16, 16, bf16) == 4  # the trainer's batches
+    assert kpacked.head_group(80, 16, 16, bf16) == 4
+    assert kpacked.head_group(3, 16, 16, bf16) == 8
+    assert kpacked.head_group(17, 6, 64, bf16) == 3  # bytes bound it here
+    assert kpacked.head_group(128, 2, 64, bf16) == 1  # one head is above it: still one
+    for t, h, dh in ((96, 16, 16), (37, 4, 32), (128, 12, 16), (80, 16, 16), (5, 16, 16)):
+        g = kpacked.head_group(t, h, dh, bf16)
+        per_head = 2 * (-(-t // 16) * 16) * dh * 2
+        assert h % g == 0 and g * kpacked.tile_pairs(t) <= 12
+        assert g == 1 or g * per_head <= kpacked.GROUP_BYTES[bf16]
+
+
+def _emulate_k2_bf16(q, k, v):
+    """The arithmetic of K2's bf16 tensor-core body (csrc/flash_attention.cu),
+    in PyTorch on the CPU: bf16 products summed in float32, 64-key tiles,
+    an online softmax in float32 and base 2, the unnormalized P rounded to
+    bf16 before P V, float32 accumulation, 1/l at the end, bf16 output."""
+    b, t, h, dh = q.shape
+    qf, kf, vf = (x.float().transpose(1, 2) for x in (q, k, v))  # (B, H, T, Dh)
+    c = math.log2(math.e) / math.sqrt(dh)
+    m = torch.full((b, h, t, 1), -math.inf)
+    l, acc = torch.zeros(b, h, t, 1), torch.zeros(b, h, t, dh)
+    rows = torch.arange(t)[:, None]
+    for n0 in range(0, t, 64):
+        keys = torch.arange(n0, min(n0 + 64, t))[None, :]
+        s = (qf @ kf[:, :, n0:n0 + 64].transpose(-1, -2)).masked_fill(keys > rows, -math.inf)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2((m - m_new) * c)
+        p = torch.exp2(s * c - m_new * c)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p.bfloat16().float() @ vf[:, :, n0:n0 + 64]
+        m = m_new
+    return (acc * (1 / l)).bfloat16().transpose(1, 2)
+
+
+def _emulate_k5f_bf16(q, k, v):
+    """The arithmetic of K5f's bf16 tensor-core body
+    (csrc/packed_attention.cu): a row's scores complete, the exact max and
+    sum in float32 and base 2, P normalized and then rounded to bf16, P V
+    accumulated in float32, bf16 output."""
+    _, t, _, dh = q.shape
+    qf, kf, vf = (x.float().transpose(1, 2) for x in (q, k, v))
+    c = math.log2(math.e) / math.sqrt(dh)
+    causal = torch.ones(t, t, dtype=torch.bool).tril()
+    s = (qf @ kf.transpose(-1, -2)).masked_fill(~causal, -math.inf)
+    p = torch.exp2(s * c - s.amax(-1, keepdim=True) * c)
+    p = p * (1 / p.sum(-1, keepdim=True))
+    return (p.bfloat16().float() @ vf).bfloat16().transpose(1, 2)
+
+
+EMULATIONS = {"flash": _emulate_k2_bf16, "packed": _emulate_k5f_bf16}
+
+
+@pytest.mark.parametrize("t", [3, 65, 128, 250])
+@pytest.mark.parametrize("kernel", ["flash", "packed"])
+def test_bf16_rounding_points_fit_the_chip_tolerance(kernel, t):
+    """The rounding points of the bf16 tensor-core bodies of K2 and K5f,
+    emulated on the CPU, against the plain version that chip_smoke.py holds
+    the kernels to, within half of its bf16 tolerance (2 bf16 ulps of the
+    output scale, 2 * 2^-7 * max |ref|): the rest is left for the order of
+    the sums on the card. (K5f takes T <= 128; at T 250 this checks its
+    rounding point alone.)"""
+    q, k, v = (_t(_normal(70 + i, 4, t, 4, 16)).bfloat16() for i in range(3))
+    ref = tatt.causal_attention(q, k, v, torch.float32).float()
+    mine = EMULATIONS[kernel](q, k, v).float()
+    assert mine.shape == ref.shape
+    tol = 0.5 * 2 * 2.0**-7 * float(ref.abs().max())
+    assert float((mine - ref).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("t", [3, 37, 65, 128])
+def test_packed_bf16_rounding_point_matches_pallas_kernel(t):
+    """K5f's bf16 emulation against the TPU kernel in interpret mode, in
+    bf16: both round the normalized P to bf16 before P V and accumulate in
+    float32, so they differ by the last float32 bits of P before that
+    rounding and by the rounding of the output: within one bf16 ulp of the
+    output scale."""
+    q, k, v = (_normal(80 + i, 2, t, 8, 16) for i in range(3))
+    ref = jax_packed(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)))
+    ref = np.asarray(ref.astype(jnp.float32))
+    mine = _emulate_k5f_bf16(*(_t(x).bfloat16() for x in (q, k, v)))
+    _close(mine, ref, atol=2.0**-7 * np.abs(ref).max(), rtol=0)
+
+
+def test_bf16_attention_inputs_must_be_16_byte_aligned():
+    """The bf16 bodies copy q, k, v 16 bytes at a time: a base pointer or a
+    batch or token stride that is not a multiple of 16 bytes is refused, not
+    routed elsewhere; the model's views of the fused projection pass, and
+    float32 (CUDA cores) takes any strides."""
+    b, t, h, dh = 2, 8, 4, 16
+    qkv = torch.empty(b, t, 3 * h * dh, dtype=torch.bfloat16, device="meta")
+    q, k, v = (x.view(b, t, h, dh) for x in qkv.split(h * dh, dim=-1))
+    kflash.check_aligned(q, k, v)
+    odd_token = torch.empty(b, t, h * dh + 4, dtype=torch.bfloat16, device="meta")
+    odd_token = odd_token[..., : h * dh].view(b, t, h, dh)  # token stride 68 elements
+    with pytest.raises(ValueError, match="bf16 k needs a 16-byte aligned base"):
+        kflash.check_aligned(q, odd_token, v)
+    shifted = qkv.view(-1)[4:4 + b * t * h * dh].view(b, t, h, dh)  # base 8 bytes in
+    with pytest.raises(ValueError, match="packed_causal_attention: bf16 v"):
+        kflash.check_aligned(q, k, shifted, "packed_causal_attention")
+    kflash.check_aligned(*(x.float() for x in (q, odd_token, shifted)))
 
 
 def test_flash_cpu_path_takes_strided_views():
