@@ -10,15 +10,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
 
  1. build: nvcc builds every kernel under coati_tpu_torch/csrc for sm_90a,
     one process per source, all at once; ptxas's registers and spills of
-    each kernel are reported, and the bf16 attention kernels must not spill.
+    each kernel are reported, and the bf16 tensor-core kernels must not spill.
  2. kernels: each kernel against its plain PyTorch version on the card, on
-    the main paths' shapes (for K2 and K5f also the edges of their tiles,
-    the other head sizes and the trainer's shapes), within a stated
-    tolerance; each timed with CUDA events (median of 25 launches after
+    the main paths' shapes (for the tensor-core bodies also the edges of
+    their tiles, the other head sizes and the trainer's shapes; K5b, and
+    all but dc of K4's bf16 body, must repeat bit for bit over two
+    launches), within a stated tolerance; each timed with CUDA events (median of 25 launches after
     warm-up, L2 flushed before each, the host's launch hidden behind a spin
     on the card), beside its bound and, where one PyTorch call computes the
     same function, that call (a yardstick only: the port never calls it);
-    K2 and K5f also beside the floor of their exponentials.
+    K2 and K5f also beside the floor of their exponentials. Then routing:
+    forward + backward of the trainer's attention through K5f + K5b and
+    through K2 + its replayed plain backward, side by side.
  3. paths: the trained grande document docs/eval_model_r5.pkl on the card,
     through the user entry points. Each path starts with every kernel's
     launch count set to 0 and ends by reading the counts; runs through the
@@ -128,12 +131,13 @@ def check(cond: bool, what: str) -> None:
 _FLUSH = None
 
 
-def time_ms(fn, n: int = 25, warmup: int = 3) -> float:
+def time_ms(fn, n: int = 25, warmup: int = 3, spin: int = 200_000) -> float:
     """Median device time of fn() in ms, by CUDA events around each call,
-    with a 256 MB write before each to evict the 50 MB L2. A spin of about
-    0.1 ms on the card follows the write, so that the host has enqueued
-    the start event and fn's kernels before the card reaches them: the
-    time between the events is the card's, not the host's launch."""
+    with a 256 MB write before each to evict the 50 MB L2. A spin of `spin`
+    clock cycles on the card (about 0.1 ms by default) follows the write,
+    so that the host has enqueued the start event and fn's kernels before
+    the card reaches them: the time between the events is the card's, not
+    the host's launch."""
     global _FLUSH
     if _FLUSH is None:
         _FLUSH = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
@@ -142,7 +146,7 @@ def time_ms(fn, n: int = 25, warmup: int = 3) -> float:
     events = []
     for _ in range(n):
         _FLUSH.zero_()
-        torch.cuda._sleep(200_000)  # clock cycles
+        torch.cuda._sleep(spin)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -246,12 +250,13 @@ def phase_build():
     usage = {name: ptxas_usage(log) for name, log in build.BUILD_LOG.items()}
     emit({"phase": "build", "sources": list(build.SOURCES), "seconds": round(seconds, 2),
           "arch": "sm_90a", "ptxas": usage})
-    # the tensor-core attention bodies keep their scores in registers: a
-    # spill would put them in local memory
-    spilled = [k for src in ("flash_attention", "packed_attention")
+    # the tensor-core bodies keep their scores (attention) and their dW2
+    # slice (K4) in registers: a spill would put them in local memory
+    spilled = [k for src in ("flash_attention", "packed_attention", "packed_attention_bwd",
+                             "egnn_messages_bwd")
                for k, u in usage.get(src, {}).items()
                if "bf16" in k and u.get("spill_bytes", 0) > 0]
-    check(not spilled, f"bf16 attention kernels spill registers: {spilled}")
+    check(not spilled, f"bf16 tensor-core kernels spill registers: {spilled}")
 
 
 def _attention_case(name, b, t, h, dh, dtype, gen):
@@ -367,9 +372,10 @@ def _messages_case(d2, w, hm, mm_dtype, gen, label, timed=True):
     return case
 
 
-def _attention_bwd_case(b, t, h, dh, dtype, gen):
+def _attention_bwd_case(b, t, h, dh, dtype, gen, timed=True):
     """K5b `packed_causal_attention_backward` against
-    causal_attention_backward, on strided q, k, v and a contiguous g."""
+    causal_attention_backward, on strided q, k, v and a contiguous g; a
+    second launch on the same inputs must repeat the first bit for bit."""
     from coati_tpu_torch.ops.attention import causal_attention_backward
     from coati_tpu_torch.ops.kernels.packed_attention import packed_causal_attention_backward
 
@@ -377,8 +383,10 @@ def _attention_bwd_case(b, t, h, dh, dtype, gen):
     q, k, v = (x.view(b, t, h, dh) for x in qkv.split(h * dh, dim=-1))
     g = torch.randn(b, t, h, dh, generator=gen, device="cuda").to(dtype)
     outs = packed_causal_attention_backward(q, k, v, g)
+    again = packed_causal_attention_backward(q, k, v, g)
     refs = causal_attention_backward(q, k, v, g)
     torch.cuda.synchronize()
+    repeats = all(torch.equal(x, y) for x, y in zip(outs, again))
     # float32: the order of sums of up to T terms, on gradients that reach
     # 6-7 here; bf16: 2 ulps of each output's scale, as for the forward
     errs = [float((o.float() - r.float()).abs().max()) for o, r in zip(outs, refs)]
@@ -386,27 +394,36 @@ def _attention_bwd_case(b, t, h, dh, dtype, gen):
     elt = torch.finfo(dtype).bits // 8
     # five products of 2 * Dh operations per causal pair: the scores, dP, dq, dk, dv
     bound, by = bound_ms(7 * b * t * h * dh * elt, 10 * b * h * (t * (t + 1) // 2) * dh, dtype)
+    case = {
+        "kernel": "packed_causal_attention_backward", "shape": [b, t, h, dh],
+        "dtype": str(dtype)[6:], "max_abs_err": max(errs), "max_abs_err_dq_dk_dv": errs,
+        "tol_dq_dk_dv": tols, "repeats_bit_for_bit": repeats,
+        "ok": repeats and all(e <= t_ for e, t_ in zip(errs, tols)),
+        "bound_ms": bound, "bound_by": by,
+    }
+    if not timed:
+        return case
     qt, kt, vt, gt = (x.transpose(1, 2).detach() for x in (q, k, v, g))
     for x in (qt, kt, vt):
         x.requires_grad_(True)
     sdpa = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-    return {
-        "kernel": "packed_causal_attention_backward", "shape": [b, t, h, dh],
-        "dtype": str(dtype)[6:], "max_abs_err": max(errs), "max_abs_err_dq_dk_dv": errs,
-        "tol_dq_dk_dv": tols, "ok": all(e <= t_ for e, t_ in zip(errs, tols)),
+    case.update({
         "ms": time_ms(lambda: packed_causal_attention_backward(q, k, v, g)),
         "plain_ms": time_ms(lambda: causal_attention_backward(q, k, v, g)),
-        "bound_ms": bound, "bound_by": by,
         # the library's backward alone, on a retained graph
         "library_ms": time_ms(
             lambda: torch.autograd.grad(sdpa, (qt, kt, vt), gt, retain_graph=True)
         ),
-    }
+    })
+    case["vs_library"] = case["ms"] / case["library_ms"]
+    return case
 
 
 def _messages_bwd_case(d2, w, hm, mm_dtype, gen, label, timed=True):
     """K4 `egnn_messages_backward` against its plain version on the pair
-    geometry (d2, w), inputs as in _messages_case and a random cotangent."""
+    geometry (d2, w), inputs as in _messages_case and a random cotangent. In
+    the bf16-product mode a second launch must repeat da and the parameter
+    gradients (dwd, db1, dW2, db2) bit for bit."""
     from coati_tpu_torch.ops import egnn_messages as plain
     from coati_tpu_torch.ops.kernels.egnn_messages import egnn_messages_backward
 
@@ -420,9 +437,12 @@ def _messages_bwd_case(d2, w, hm, mm_dtype, gen, label, timed=True):
     w2 = rand(hm, hm, scale=hm**-0.5)
     args = (a, c, d2, w, wd, b1, w2, b2, rand(b, n, hm))
     outs = egnn_messages_backward(*args, mm_dtype=mm_dtype)
+    again = egnn_messages_backward(*args, mm_dtype=mm_dtype)
     refs = plain.egnn_messages_backward(*args, mm_dtype=mm_dtype)
     torch.cuda.synchronize()
     names = ("da", "dc", "dwd", "db1", "dw2", "db2")
+    # all but dc, which the bf16 body sums by float32 atomics
+    repeats = all(torch.equal(x, y) for i, (x, y) in enumerate(zip(outs, again)) if i != 1)
     errs = {k: float((o - r).abs().max()) for k, o, r in zip(names, outs, refs)}
     scales = {k: max(1.0, float(r.abs().max())) for k, r in zip(names, refs)}
     # float32: the order of the sums only, by atomics for all but da; da and
@@ -439,10 +459,11 @@ def _messages_bwd_case(d2, w, hm, mm_dtype, gen, label, timed=True):
     case = {
         "kernel": "egnn_messages_backward", "case": label, "shape": [b, n, hm],
         "mm_dtype": str(mm_dtype)[6:], "live_pairs": pairs, "dense_pairs": b * n * n,
-        "dead_rows_and_columns_zero": zero,
+        "dead_rows_and_columns_zero": zero, "repeats_but_dc": repeats,
         "max_abs_err": max(errs.values()), "max_abs_err_by_output": errs,
         "tol_by_output": {k: rel * scales[k] for k in names},
-        "ok": zero and all(errs[k] <= rel * scales[k] for k in names),
+        "ok": zero and (repeats or mm_dtype == torch.float32)
+        and all(errs[k] <= rel * scales[k] for k in names),
         "bound_ms": bound, "bound_by": by, "library_ms": None,
     }
     if timed:
@@ -537,15 +558,20 @@ def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf16, f32 = torch.bfloat16, torch.float32
     cases = attention_cases(gen)
-    # K5b: the trainer's batch at its widest, the inference batch at the
-    # widths K5f serves, and ragged shapes at the other head sizes
+    # K5b: the trainer's batch at its widest and at its real widths, the
+    # inference batch at the widths K5f serves, ragged shapes at the other
+    # head sizes, and the edges of the bf16 body's 16-row tiles
     for dtype in (bf16, f32):
         cases.append(_attention_bwd_case(160, 80, 16, 16, dtype, gen))
         cases.append(_attention_bwd_case(1024, 96, 16, 16, dtype, gen))
         cases.append(_attention_bwd_case(1024, 128, 16, 16, dtype, gen))
+    cases.append(_attention_bwd_case(160, 32, 16, 16, bf16, gen))
+    cases.append(_attention_bwd_case(160, 48, 16, 16, bf16, gen))
     cases.append(_attention_bwd_case(5, 17, 4, 32, f32, gen))
     cases.append(_attention_bwd_case(5, 17, 4, 32, bf16, gen))
     cases.append(_attention_bwd_case(2, 70, 2, 64, bf16, gen))
+    cases += [_attention_bwd_case(16, t, h, dh, bf16, gen, timed=False)
+              for t in (1, 15, 16, 17, 127) for h, dh in ((8, 16), (4, 32), (6, 64))]
     # K3 and K4: ragged molecules with a lone atom and an all-padding row,
     # small odd shapes, then the fixture's molecules (timed; the main paths'
     # shapes: all 1,024 at the document's cutoff for K3, the trainer's batch
@@ -559,6 +585,12 @@ def phase_kernels():
     cases.append(_messages_bwd_case(*_random_geometry([11, 5, 0], 11, gen), 32, f32, gen, "odd"))
     cases.append(_messages_bwd_case(*_random_geometry([11, 7, 3], 11, gen), 128, bf16, gen, "odd"))
     cases.append(_messages_bwd_case(*_random_geometry([9, 130], 130, gen), 20, f32, gen, "odd"))
+    # the bf16 body's edges: Hm not a multiple of 16 or 64 (slices of 32 and
+    # 64 columns, padded), N not a multiple of 8, an all-padding molecule
+    for counts, n, hm in (([11, 5, 0], 11, 20), ([9, 130, 0], 130, 200),
+                          ([37, 0, 20, 1], 37, 100), ([13, 2], 13, 136)):
+        geometry = _random_geometry(counts, n, gen)
+        cases.append(_messages_bwd_case(*geometry, hm, bf16, gen, "odd", timed=False))
     for cutoff, label in ((5.0, "fixture160"), (12.0, "fixture160_cutoff12")):
         d2, w, _ = _fixture_geometry(160, cutoff)
         for mm in (f32, bf16):
@@ -598,6 +630,38 @@ def phase_kernels():
         if all(c.get(key) == value for key, value in pick[c["kernel"]].items()):
             chosen.setdefault(c["kernel"], c)
     return chosen
+
+
+def phase_routing():
+    """Routing numbers, no routing change: forward and backward of the
+    trainer's attention at its widths (B 160, H 16, Dh 16, bf16, strided q,
+    k, v of one fused projection, as the model passes them) through the
+    packed pair (K5f + K5b), which the trainer takes at n_seq <= 128, and
+    through K2 with its replayed plain backward. Each is the device time of
+    one forward and one torch.autograd.grad, between CUDA events."""
+    from coati_tpu_torch.ops.kernels.flash_attention import flash_causal_attention
+    from coati_tpu_torch.ops.kernels.packed_attention import packed_causal_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    b, h, dh = 160, 16, 16
+    for t in (48, 80):
+        qkv = torch.randn(b, t, 3 * h * dh, generator=gen, device="cuda").to(torch.bfloat16)
+        qkv.requires_grad_(True)
+        g = torch.randn(b, t, h, dh, generator=gen, device="cuda").to(torch.bfloat16)
+
+        def fwd_bwd(kernel):
+            q, k, v = (x.view(b, t, h, dh) for x in qkv.split(h * dh, dim=-1))
+            return torch.autograd.grad(kernel(q, k, v), (qkv,), g)
+
+        # a spin of about 5 ms: autograd's host work for one forward and
+        # backward is enqueued before the card starts on it
+        row = {"phase": "routing", "shape": [b, t, h, dh], "dtype": "bfloat16",
+               "packed_k5f_k5b_ms": time_ms(lambda: fwd_bwd(packed_causal_attention),
+                                            spin=10_000_000),
+               "flash_k2_replayed_ms": time_ms(lambda: fwd_bwd(flash_causal_attention),
+                                               spin=10_000_000)}
+        row["packed_over_flash"] = row["packed_k5f_k5b_ms"] / row["flash_k2_replayed_ms"]
+        emit(row)
 
 
 @contextlib.contextmanager
@@ -1150,6 +1214,8 @@ def main() -> int:
     lap("build")
     chosen = phase_kernels()
     lap("kernels")
+    phase_routing()
+    lap("routing")
     model, tok = load_model()
     paths = {}
     paths["smiles"], flash_run = phase_smiles(model, tok)

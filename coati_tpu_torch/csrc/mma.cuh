@@ -1,6 +1,7 @@
-// Tensor-core and asynchronous-copy helpers shared by the bf16 attention
-// kernels (flash_attention.cu, packed_attention.cu): 16-byte cp.async
-// copies with zero fill, ldmatrix (plain and transposed), the bf16
+// Tensor-core and asynchronous-copy helpers shared by the bf16 bodies of
+// the attention kernels (flash_attention.cu, packed_attention.cu,
+// packed_attention_bwd.cu) and of the EGNN message backward
+// (egnn_messages_bwd.cu): 16-byte cp.async copies with zero fill, ldmatrix (plain and transposed), the bf16
 // mma.sync m16n8k16 with float32 accumulation, bf16 packing, the fast
 // base-2 exponential and the XOR swizzle of a shared-memory tile.
 //

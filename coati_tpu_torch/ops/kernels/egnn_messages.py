@@ -23,8 +23,13 @@ JAX package they are cast to float32 for the kernels, which compute in
 float32, and each result is cast back to its input's dtype. mm_dtype
 bfloat16 is the JAX package's egnn_messages_bf16: the inputs of the inner
 products are rounded to bf16 first, and the products accumulate in float32.
-K4 adds its parameter gradients and dc with float32 atomics, so they may
-differ in their last bits between two runs on the same inputs.
+K4's bf16-product mode runs on the tensor cores, in persistent clusters of
+4 blocks that each own a quarter of W2's columns (`bwd_work_split`); da and
+its parameter gradients are summed in a fixed order and repeat bit for bit,
+while dc (float32 atomics, one per run of pairs with one partner) may
+differ in its last bits between two runs on the same inputs. Its float32
+mode runs on CUDA cores and adds dc and every parameter gradient by float32
+atomics.
 """
 
 from __future__ import annotations
@@ -41,7 +46,12 @@ MAX_SHARED_BYTES = 232448  # what one block may ask for on an H100
 _ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
-_BWD_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# K4's bf16-product body: clusters of 4 blocks, each owning SW = Hp / 4
+# columns of W2 (Hp: Hm rounded up to 128 or 256), so Hm <= 256
+BWD_CLUSTER = 4
+BWD_MAX_HM = 256
+_SPLITS: dict = {}
 
 
 def _library():
@@ -57,9 +67,70 @@ def _bwd_library():
     lib = build.load("egnn_messages_bwd")
     lib.egnn_messages_bwd.argtypes = _BWD_ARGTYPES
     lib.egnn_messages_bwd.restype = ctypes.c_int
-    lib.egnn_messages_bwd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.egnn_messages_bwd_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.egnn_messages_bwd_smem_bytes.restype = ctypes.c_longlong
+    lib.egnn_messages_bwd_clusters.argtypes = [ctypes.c_int] * 3 + [
+        ctypes.POINTER(ctypes.c_longlong)]
+    lib.egnn_messages_bwd_clusters.restype = ctypes.c_int
     return lib
+
+
+def bwd_slice_width(hm: int) -> int:
+    """Columns of W2 one block of K4's bf16 body owns: a quarter of Hm
+    rounded up to 128 (32) or 256 (64); 0 above 256, which it refuses."""
+    return 32 if hm <= 128 else (64 if hm <= BWD_MAX_HM else 0)
+
+
+def bwd_warps(hm: int) -> int:
+    """Warps of a block of K4's bf16 body (csrc tc_warps): 16 when a block
+    owns 64 columns, 8 when it owns 32."""
+    return 16 if bwd_slice_width(hm) == 64 else 8
+
+
+def bwd_smem_bytes(n: int, hm: int) -> int:
+    """Shared memory of one block of K4's bf16 body
+    (csrc/egnn_messages_bwd.cu bf16_smem_bytes): W2's column and row slices
+    and the e1 and dz2 tiles of a 64-pair chunk in bf16; two buffers of the
+    slice of c of a chunk's partners (rows padded by 8 floats), the work
+    item's a and g rows, da's accumulators of each of the walk's row groups
+    (one a slice width of threads) and the slice's vectors in float32; two
+    buffers of a chunk's pairs; the item's rows of w and d2 and its list of
+    live pairs."""
+    sw = bwd_slice_width(hm)
+    hp, groups = 4 * sw, 32 * bwd_warps(hm) // sw
+    return (2 * (2 * hp * sw + 2 * 64 * hp)
+            + 4 * (2 * 64 * (sw + 8) + (2 + groups) * 8 * sw + 3 * sw + 8 * 64) + 12 * 8 * n)
+
+
+def bwd_work_split(b: int, n: int, hm: int, clusters: int) -> dict:
+    """How K4's bf16 body splits its work when `clusters` clusters of 4
+    blocks run at once: the work items (molecule, 8 atoms i), which the
+    clusters take in ranges of equal cost, the columns a block owns, its
+    warps, and the float32 scratch: the clusters' partial parameter
+    gradients (Hp x Hp for dW2, then db2, db1, dwd), then an int64 cost an
+    item (two floats)."""
+    sw = bwd_slice_width(hm)
+    hp = 4 * sw
+    items = b * -(-n // 8)
+    return {"items": items, "slice_width": sw, "padded_width": hp,
+            "blocks": BWD_CLUSTER * clusters, "warps": bwd_warps(hm),
+            "scratch_floats": clusters * (hp * hp + 3 * hp) + 2 * items}
+
+
+def _bwd_clusters(lib, b: int, n: int, hm: int) -> int:
+    """Clusters of K4's bf16 body that the card runs at once (the C side's
+    occupancy query), cached by (device, N, Hm)."""
+    key = (torch.cuda.current_device(), n, hm)
+    if key not in _SPLITS:
+        floats = ctypes.c_longlong(0)
+        clusters = lib.egnn_messages_bwd_clusters(b, n, hm, ctypes.byref(floats))
+        if clusters < 1:
+            raise RuntimeError(
+                f"egnn_messages_backward: no cluster of {BWD_CLUSTER} blocks fits the card at "
+                f"N {n}, Hm {hm}")
+        assert floats.value == bwd_work_split(b, n, hm, clusters)["scratch_floats"]
+        _SPLITS[key] = clusters
+    return _SPLITS[key]
 
 
 def _check_inputs(a, c, d2, w, wd, b1, w2, b2, mm_dtype) -> None:
@@ -132,22 +203,37 @@ def egnn_messages_backward(a, c, d2, w, wd, b1, w2, b2, g, mm_dtype=torch.float3
             f"a {tuple(a.shape)} on {a.device}"
         )
     b, n, hm = a.shape
+    bf16 = mm_dtype == torch.bfloat16
+    if bf16 and hm > BWD_MAX_HM:
+        raise ValueError(
+            f"egnn_messages_backward: the bf16-product kernel takes Hm <= {BWD_MAX_HM}, got {hm}")
     lib = _bwd_library()
-    _check_shared(lib.egnn_messages_bwd_smem_bytes(n, hm), n, hm, "egnn_messages_backward")
+    _check_shared(lib.egnn_messages_bwd_smem_bytes(n, hm, int(bf16)), n, hm,
+                  "egnn_messages_backward")
     af, cf, d2f, wf, wdf, b1f, w2f, b2f, gf = (
         x.detach().float().contiguous() for x in (a, c, d2, w, wd, b1, w2, b2, g)
     )
-    w2t = w2f.t().contiguous()  # the kernel streams W2^T row by row
+    if cf.data_ptr() % 16:  # the bf16 body copies rows of c 16 bytes at a time
+        cf = cf.clone()
     dev = a.device
     da = torch.empty((b, n, hm), dtype=torch.float32, device=dev)
-    # the kernel adds into these
-    dc = torch.zeros((b, n, hm), dtype=torch.float32, device=dev)
-    dw2 = torch.zeros((hm, hm), dtype=torch.float32, device=dev)
-    dwd, db1, db2 = torch.zeros((3, hm), dtype=torch.float32, device=dev).unbind(0)
+    dc = torch.zeros((b, n, hm), dtype=torch.float32, device=dev)  # the kernel adds into it
+    if bf16:  # written once each, by the last block of each column slice
+        dw2 = torch.empty((hm, hm), dtype=torch.float32, device=dev)
+        dwd, db1, db2 = torch.empty((3, hm), dtype=torch.float32, device=dev).unbind(0)
+        clusters = _bwd_clusters(lib, b, n, hm)
+        scratch = torch.empty(bwd_work_split(b, n, hm, clusters)["scratch_floats"],
+                              dtype=torch.float32, device=dev)
+        done = torch.zeros(BWD_CLUSTER + 1, dtype=torch.int32, device=dev)
+        extra = (scratch.data_ptr(), done.data_ptr(), clusters)
+    else:  # added into by atomics
+        dw2 = torch.zeros((hm, hm), dtype=torch.float32, device=dev)
+        dwd, db1, db2 = torch.zeros((3, hm), dtype=torch.float32, device=dev).unbind(0)
+        extra = (None, None, 0)
     err = lib.egnn_messages_bwd(
-        *(x.data_ptr() for x in (af, cf, d2f, wf, wdf, b1f, w2f, w2t, b2f, gf)),
+        *(x.data_ptr() for x in (af, cf, d2f, wf, wdf, b1f, w2f, b2f, gf)),
         *(x.data_ptr() for x in (da, dc, dwd, db1, dw2, db2)),
-        b, n, hm, int(mm_dtype == torch.bfloat16), build.stream_handle(dev),
+        *extra, b, n, hm, int(bf16), build.stream_handle(dev),
     )
     build.check(err, "egnn_messages_backward kernel")
     egnn_messages.bwd_launches += 1

@@ -87,15 +87,19 @@ def check_qkv(
 
 
 def check_aligned(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str = "flash_causal_attention"
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str = "flash_causal_attention",
+    g: torch.Tensor | None = None,
 ) -> None:
-    """Raise on bfloat16 q, k, v that the tensor-core bodies (this kernel's
-    and the short-sequence one's) cannot copy 16 bytes at a time: a base
-    pointer, or a batch or token stride in bytes, that is not a multiple of
-    16. float32 runs on CUDA cores and takes any strides."""
+    """Raise on bfloat16 q, k, v (and the cotangent g of the short-sequence
+    backward) that the tensor-core bodies (this kernel's and the
+    short-sequence ones') cannot copy 16 bytes at a time: a base pointer, or
+    a batch or token stride in bytes, that is not a multiple of 16. float32
+    runs on CUDA cores and takes any strides."""
     if q.dtype != torch.bfloat16:
         return
-    for arg, x in (("q", q), ("k", k), ("v", v)):
+    for arg, x in (("q", q), ("k", k), ("v", v), ("g", g)):
+        if x is None:
+            continue
         elt = x.element_size()
         if x.data_ptr() % 16 or (x.stride(0) * elt) % 16 or (x.stride(1) * elt) % 16:
             raise ValueError(

@@ -9,11 +9,17 @@ as K2 (ops/kernels/flash_attention.py); what differs is that a block stages
 the K and V of its heads once, whole, and a query row's scores are complete
 before its softmax. On an H100 both are bound by bytes; the design notes
 are at the top of the CUDA sources.
-As in K2, the input dtype picks K5f's body inside its one entry point:
-bfloat16 on the tensor cores (P normalized, then rounded to bf16 before
-P V, as on the TPU; 16-byte aligned q, k, v, see
-flash_attention.check_aligned), float32 on CUDA cores. K5b runs on CUDA
-cores in both dtypes.
+As in K2, the input dtype picks each kernel's body inside its one entry
+point: bfloat16 on the tensor cores, float32 on CUDA cores (the fidelity
+runs, held to 1e-5, which TF32 cannot meet). K5f's bf16 body normalizes P
+and then rounds it to bf16 before P V, as on the TPU. K5b's recomputes P
+and dP in float32, takes rowsum(P dP) from them unrounded, and rounds P and
+dS to bf16 before the products that use them (dq = dS k, dk = dS^T q,
+dv = P^T g), as on the TPU; it sums over query tiles in a fixed order, so
+it repeats bit for bit. Both bf16 bodies copy 16 bytes at a time and take
+only 16-byte aligned q, k, v (and g) bases and batch and token strides
+(flash_attention.check_aligned). Each block takes a group of heads:
+`head_group` for K5f, `bwd_head_group` for K5b.
 
 `packed_causal_attention` goes through `PackedCausalAttention`, a
 torch.autograd.Function: the forward is K5f and saves q, k, v (not the
@@ -55,9 +61,14 @@ _ARGTYPES = (
 )
 
 
+# K5b's staging (q, k, v, g) and its P and dS stashes per block, bf16: the
+# budget that picks the fastest group measured at T 32, 48, 80, 96 and 128
+# on an H100 by scripts/torch_attention_variants.py (PERF.md), with at most
+# three tile pairs a warp in each of its two phases, as K5f
+BWD_GROUP_BYTES = 32 * 1024
 _BWD_ARGTYPES = (
     [ctypes.c_void_p] * 7
-    + [ctypes.c_int] * 5
+    + [ctypes.c_int] * 6
     + [ctypes.c_longlong] * 6
     + [ctypes.c_float, ctypes.c_void_p]
 )
@@ -76,7 +87,7 @@ def _bwd_library():
     lib = build.load("packed_attention_bwd")
     lib.packed_causal_attention_bwd.argtypes = _BWD_ARGTYPES
     lib.packed_causal_attention_bwd.restype = ctypes.c_int
-    lib.packed_causal_attention_bwd_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.packed_causal_attention_bwd_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.packed_causal_attention_bwd_smem_bytes.restype = ctypes.c_longlong
     return lib
 
@@ -106,6 +117,33 @@ def head_group(t: int, h: int, dh: int, dtype: torch.dtype) -> int:
         if h % g or g * per_head > GROUP_BYTES[dtype]:
             return False
         return dtype != torch.bfloat16 or g * tile_pairs(t) <= MAX_PAIRS_PER_WARP * TC_WARPS
+
+    return max((g for g in range(1, h + 1) if fits(g)), default=1)
+
+
+def bwd_smem_bytes(t: int, dh: int, group: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Shared memory of one K5b block (csrc/packed_attention_bwd.cu
+    smem_bytes). bfloat16: q, k, v and g staged with T rounded up to 16,
+    and P and dS as the 16 x 16 tiles of the lower triangle, for each of
+    `group` heads; float32 (one head): q, k, v, g in rows of Dh + 1 and P,
+    dS as two float triangles."""
+    if dtype == torch.bfloat16:
+        tiles = -(-t // 16)
+        return 2 * group * (4 * tiles * 16 * dh + tiles * (tiles + 1) * 256)
+    return (4 * t * (dh + 1) + t * (t + 1)) * 4
+
+
+def bwd_head_group(t: int, h: int, dh: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Heads per K5b block: in bfloat16 the largest divisor of H whose
+    block stays under BWD_GROUP_BYTES and gives each of the 4 warps at most
+    MAX_PAIRS_PER_WARP tile pairs; at least one. float32 takes one head a
+    block."""
+    if dtype != torch.bfloat16:
+        return 1
+
+    def fits(g: int) -> bool:
+        return (h % g == 0 and bwd_smem_bytes(t, dh, g) <= BWD_GROUP_BYTES
+                and g * tile_pairs(t) <= MAX_PAIRS_PER_WARP * TC_WARPS)
 
     return max((g for g in range(1, h + 1) if fits(g)), default=1)
 
@@ -157,20 +195,23 @@ def packed_causal_attention_backward(
             f"packed_causal_attention_backward: g {tuple(g.shape)} on {g.device} does not "
             f"match q {tuple(q.shape)} on {q.device}"
         )
+    g = g.to(q.dtype).contiguous()  # autograd hands g over with any strides
+    check_aligned(q, k, v, "packed_causal_attention_backward", g)
     b, t, h, dh = q.shape
+    group = bwd_head_group(t, h, dh, q.dtype)
     lib = _bwd_library()
-    need = lib.packed_causal_attention_bwd_smem_bytes(t, dh)
+    code = build.DTYPE_CODES[q.dtype]
+    need = lib.packed_causal_attention_bwd_smem_bytes(t, dh, group, code)
     if need > MAX_SHARED_BYTES:
         raise ValueError(
             f"packed_causal_attention_backward: T {t}, Dh {dh} need {need} bytes of shared "
             f"memory a block, above the card's {MAX_SHARED_BYTES}"
         )
-    g = g.to(q.dtype).contiguous()  # autograd hands g over with any strides
     dq, dk, dv = (torch.empty((b, t, h, dh), dtype=q.dtype, device=q.device) for _ in range(3))
     err = lib.packed_causal_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b, t, h, dh, build.DTYPE_CODES[q.dtype],
+        b, t, h, dh, group, code,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
         1.0 / math.sqrt(dh), build.stream_handle(q.device),
     )

@@ -287,6 +287,58 @@ def test_message_wrapper_is_differentiable_and_geometry_gets_no_gradient(dtype):
         _close(args[i].grad, r.to(dtype).float().numpy(), atol=0, rtol=0)
 
 
+def test_message_backward_wrapper_takes_no_transposed_w2_and_is_the_plain_backward():
+    """The K4 wrapper passes W2 once: the kernel reads W2^T from the same
+    shared tile (bf16 mode) or column by column (float32 mode), so neither
+    the C entry point nor the wrapper builds a transposed copy. On CPU tensors
+    it returns the plain backward exactly, in both modes, and launches
+    nothing."""
+    import inspect
+
+    source = (kmsg.build.CSRC_DIR / "egnn_messages_bwd.cu").read_text()
+    entry = source[source.index('extern "C" int egnn_messages_bwd('):]
+    assert "w2t" not in entry and "w2t" not in inspect.getsource(kmsg.egnn_messages_backward)
+    # 9 inputs, 6 outputs, the bf16 body's scratch and counters, then ints
+    assert kmsg._BWD_ARGTYPES.count(kmsg.ctypes.c_void_p) == 9 + 6 + 2 + 1
+    args = _holes(_message_inputs(2, 9, 24, seed=13, live=(9, 5)))
+    g = np.random.default_rng(14).normal(size=(2, 9, 24)).astype(np.float32)
+    targs = [_t(x) for x in args]
+    before = kmsg.egnn_messages.bwd_launches
+    for mm in (torch.float32, torch.bfloat16):
+        mine = kmsg.egnn_messages_backward(*targs, _t(g), mm_dtype=mm)
+        ref = plain.egnn_messages_backward(*targs, _t(g), mm_dtype=mm)
+        assert all(torch.equal(x, r) for x, r in zip(mine, ref))
+    assert kmsg.egnn_messages.bwd_launches == before
+
+
+@pytest.mark.parametrize("hm,slice_width", [(20, 32), (128, 32), (129, 64), (256, 64), (257, 0)])
+def test_message_backward_work_split_and_shared_memory(hm, slice_width):
+    """K4's bf16 body: clusters of 4 blocks, each owning a quarter of the
+    columns of W2 rounded up to 128 or 256 (Hm above 256 is refused), with
+    16 warps at 64 columns and 8 at 32; its
+    shared memory holds W2's two slices and the e1 and dz2 tiles of a chunk
+    in bf16, two chunks' slices of c in float32, and the item's w, d2 and
+    pair list, inside one block's 227 KB at the trainer's N 128 and Hm 256;
+    the scratch holds a dW2 and three vectors a cluster."""
+    assert kmsg.bwd_slice_width(hm) == slice_width
+    if not slice_width:  # the wrapper raises before it builds anything
+        return
+    hp = 4 * slice_width
+    warps = 16 if slice_width == 64 else 8
+    split = kmsg.bwd_work_split(160, 128, hm, clusters=32)
+    assert split == {"items": 160 * 16, "slice_width": slice_width, "padded_width": hp,
+                     "blocks": 128, "warps": warps,
+                     "scratch_floats": 32 * (hp * hp + 3 * hp) + 2 * 160 * 16}
+    assert kmsg.bwd_work_split(3, 11, hm, 1)["items"] == 3 * 2
+    w2_slices, tiles = 2 * (2 * hp * slice_width), 2 * (2 * 64 * hp)
+    c_buffers = 2 * 64 * (slice_width + 8)  # two chunks' rows of c, padded by 8 floats
+    rows = (2 + 32 * warps // slice_width) * 8 * slice_width  # a, g and the walk groups' da
+    fixed = 4 * (c_buffers + rows + 3 * slice_width + 2 * 4 * 64)
+    assert kmsg.bwd_smem_bytes(128, hm) == w2_slices + tiles + fixed + 3 * 4 * 8 * 128
+    assert kmsg.bwd_smem_bytes(128, hm) <= kmsg.MAX_SHARED_BYTES
+    assert kmsg.bwd_smem_bytes(130, hm) == kmsg.bwd_smem_bytes(128, hm) + 3 * 4 * 8 * 2
+
+
 # ------------------------------------------------- gradients of the encoder
 
 UNUSED_BY_POINTS = ("xformer.", "smiles_to_clip.", "point_clip_to_special_tokens.", ".coord_mlp.")

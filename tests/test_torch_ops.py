@@ -261,6 +261,8 @@ def test_bf16_attention_inputs_must_be_16_byte_aligned():
     with pytest.raises(ValueError, match="packed_causal_attention: bf16 v"):
         kflash.check_aligned(q, k, shifted, "packed_causal_attention")
     kflash.check_aligned(*(x.float() for x in (q, odd_token, shifted)))
+    with pytest.raises(ValueError, match="packed_causal_attention_backward: bf16 g"):
+        kflash.check_aligned(q, k, v, "packed_causal_attention_backward", shifted)
 
 
 def test_flash_cpu_path_takes_strided_views():
@@ -356,6 +358,103 @@ def test_attention_wrappers_gradients_match_jax(kernel, remat):
     assert (wrapper.launches, kpacked.packed_causal_attention.bwd_launches) == before
     for x, r in zip(dqkv.split(128, dim=-1), ref):
         _close(x.reshape(2, 40, 8, 16), r)
+
+
+def _emulate_k5b_bf16(q, k, v, g):
+    """The arithmetic of K5b's bf16 tensor-core body
+    (csrc/packed_attention_bwd.cu), in PyTorch on the CPU: S = q k^T and
+    dP = g v^T in float32 from bf16 inputs; the exact row max, then in base
+    2 the unnormalized p, its sum l and sum(p dP); rowsum(P dP) = that sum
+    / l from the unrounded float32 values; P = p / l; dS = P (dP - rowsum)
+    scale rounded to bf16, P rounded to bf16; dq = dS k, and dk = dS^T q,
+    dv = P^T g as float32 sums over the 16-row query tiles in order; bf16
+    outputs."""
+    _, t, _, dh = q.shape
+    qf, kf, vf, gf = (x.float().transpose(1, 2) for x in (q, k, v, g))  # (B, H, T, Dh)
+    scale = 1 / math.sqrt(dh)
+    c = scale * math.log2(math.e)
+    causal = torch.ones(t, t, dtype=torch.bool).tril()
+    s = (qf @ kf.transpose(-1, -2)).masked_fill(~causal, -math.inf)
+    p = torch.exp2(s * c - s.amax(-1, keepdim=True) * c)
+    dp = gf @ vf.transpose(-1, -2)
+    inv = 1 / p.sum(-1, keepdim=True)
+    rowsum = (p * dp).sum(-1, keepdim=True) * inv
+    pn = p * inv
+    ds = ((pn * dp - pn * rowsum) * scale).bfloat16().float()
+    pb = pn.bfloat16().float()
+    dq = ds @ kf
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for i0 in range(0, t, 16):
+        r = slice(i0, i0 + 16)
+        dk = dk + ds[..., r, :].transpose(-1, -2) @ qf[..., r, :]
+        dv = dv + pb[..., r, :].transpose(-1, -2) @ gf[..., r, :]
+    return tuple(x.bfloat16().transpose(1, 2) for x in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("t", [1, 15, 16, 17, 48, 80, 127, 128])
+def test_k5b_bf16_rounding_points_fit_the_chip_tolerance(t):
+    """K5b's bf16 body, emulated on the CPU, against the plain backward that
+    chip_smoke.py holds the kernel to, within half of its bf16 tolerance
+    (2 bf16 ulps of each output's scale, 2 * 2^-7 * max |ref|): the rest is
+    left for the order of the sums on the card."""
+    q, k, v, g = (_t(x).bfloat16() for x in _qkvg(90, 3, t, 4, 16))
+    for mine, ref in zip(_emulate_k5b_bf16(q, k, v, g), tatt.causal_attention_backward(q, k, v, g)):
+        assert mine.shape == ref.shape and mine.dtype == torch.bfloat16
+        ref = ref.float()
+        tol = 0.5 * 2 * 2.0**-7 * float(ref.abs().max())
+        assert float((mine.float() - ref).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("t", [1, 16, 17, 48, 80, 128])
+def test_k5b_bf16_emulation_matches_pallas_backward_kernel(t):
+    """K5b's bf16 emulation against the TPU backward kernel in interpret
+    mode, in bf16 (H * Dh = 128, which the TPU kernel needs): both round dS
+    and P to bf16 before the products and accumulate in float32, so they
+    differ by the last float32 bits before those roundings, and by the
+    rounding of the outputs: within half of the chip's 2-ulp tolerance."""
+    q, k, v, g = _qkvg(94, 2, t, 8, 16)
+    refs = jax_packed_backward(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, g)),
+                               interpret=True)
+    mine = _emulate_k5b_bf16(*(_t(x).bfloat16() for x in (q, k, v, g)))
+    for x, r in zip(mine, refs):
+        r = np.asarray(r.astype(jnp.float32))
+        _close(x, r, atol=0.5 * 2 * 2.0**-7 * np.abs(r).max(), rtol=0)
+
+
+def test_packed_backward_picks_head_groups_by_its_shared_memory():
+    """K5b's bf16 blocks stage q, k, v, g and stash P and dS as 16 x 16
+    tiles of the lower triangle for each head of their group; the group is
+    the largest divisor of H under BWD_GROUP_BYTES with at most three tile
+    pairs for each of 4 warps; float32 takes one head a block."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    # T 128, Dh 16: 4 x 128 x 16 staged and 2 x 36 tiles of 256, in bf16
+    assert kpacked.bwd_smem_bytes(128, 16, 1) == 2 * (4 * 128 * 16 + 2 * 36 * 256)
+    assert kpacked.bwd_smem_bytes(97, 16, 2) == kpacked.bwd_smem_bytes(112, 16, 2)
+    assert kpacked.bwd_smem_bytes(80, 16, 1, f32) == (4 * 80 * 17 + 80 * 81) * 4
+    assert kpacked.bwd_head_group(32, 16, 16) == 4  # the trainer's batches
+    assert kpacked.bwd_head_group(48, 16, 16) == 2
+    assert kpacked.bwd_head_group(80, 16, 16) == 1
+    assert kpacked.bwd_head_group(96, 16, 16) == 1
+    assert kpacked.bwd_head_group(128, 16, 16) == 1
+    assert kpacked.bwd_head_group(128, 2, 64) == 1  # one head is above it: still one
+    assert kpacked.bwd_head_group(48, 16, 16, f32) == 1
+    for t, h, dh in ((80, 16, 16), (37, 4, 32), (17, 6, 64), (3, 16, 16), (128, 12, 16)):
+        grp = kpacked.bwd_head_group(t, h, dh)
+        assert h % grp == 0 and grp * kpacked.tile_pairs(t) <= 12
+        assert grp == 1 or kpacked.bwd_smem_bytes(t, dh, grp) <= kpacked.BWD_GROUP_BYTES
+        assert kpacked.bwd_smem_bytes(t, dh, grp) <= kpacked.MAX_SHARED_BYTES
+
+
+def test_packed_backward_wrapper_on_the_cpu_is_the_plain_backward():
+    """On CPU tensors the K5b wrapper returns the plain backward exactly, in
+    both dtypes, and launches nothing."""
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, g = (_t(x).to(dtype) for x in _qkvg(98, 2, 21, 4, 16))
+        before = kpacked.packed_causal_attention.bwd_launches
+        mine = kpacked.packed_causal_attention_backward(q, k, v, g)
+        for x, r in zip(mine, tatt.causal_attention_backward(q, k, v, g)):
+            assert x.dtype == dtype and torch.equal(x, r)
+        assert kpacked.packed_causal_attention.bwd_launches == before
 
 
 def test_packed_backward_refuses_long_sequences():
