@@ -13,13 +13,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
     each kernel are reported, and the bf16 tensor-core kernels must not spill.
  2. kernels: each kernel against its plain PyTorch version on the card, on
     the main paths' shapes (for the tensor-core bodies also the edges of
-    their tiles, the other head sizes and the trainer's shapes; K5b, and
-    all but dc of K4's bf16 body, must repeat bit for bit over two
-    launches), within a stated tolerance; each timed with CUDA events (median of 25 launches after
+    their tiles, the other head sizes and the trainer's shapes; K5b, K3's
+    bf16 body and all but dc of K4's must repeat bit for bit over two
+    launches; K3's bf16 body must refuse Hm 257 before any launch), within
+    a stated tolerance; each timed with CUDA events (median of 25 launches after
     warm-up, L2 flushed before each, the host's launch hidden behind a spin
     on the card), beside its bound and, where one PyTorch call computes the
     same function, that call (a yardstick only: the port never calls it);
-    K2 and K5f also beside the floor of their exponentials. Then routing:
+    K2, K5f and K3 also beside the floor of their exponentials. Then routing:
     forward + backward of the trainer's attention through K5f + K5b and
     through K2 + its replayed plain backward, side by side.
  3. paths: the trained grande document docs/eval_model_r5.pkl on the card,
@@ -250,10 +251,11 @@ def phase_build():
     usage = {name: ptxas_usage(log) for name, log in build.BUILD_LOG.items()}
     emit({"phase": "build", "sources": list(build.SOURCES), "seconds": round(seconds, 2),
           "arch": "sm_90a", "ptxas": usage})
-    # the tensor-core bodies keep their scores (attention) and their dW2
-    # slice (K4) in registers: a spill would put them in local memory
+    # the tensor-core bodies keep their scores (attention), their dW2 slice
+    # (K4) and their z2 tile and range sums (K3) in registers: a spill would
+    # put them in local memory
     spilled = [k for src in ("flash_attention", "packed_attention", "packed_attention_bwd",
-                             "egnn_messages_bwd")
+                             "egnn_messages_bwd", "egnn_messages")
                for k, u in usage.get(src, {}).items()
                if "bf16" in k and u.get("spill_bytes", 0) > 0]
     check(not spilled, f"bf16 tensor-core kernels spill registers: {spilled}")
@@ -329,7 +331,8 @@ def _random_geometry(counts, n, gen):
 def _messages_case(d2, w, hm, mm_dtype, gen, label, timed=True):
     """K3 against its plain version (which walks the batch in chunks) on
     the pair geometry (d2, w), with random a, c and weights at the scale
-    the encoder gives them."""
+    the encoder gives them. In the bf16-product mode a second launch must
+    repeat the first bit for bit."""
     from coati_tpu_torch.ops import egnn_messages as plain
     from coati_tpu_torch.ops.kernels.egnn_messages import egnn_messages
 
@@ -343,8 +346,10 @@ def _messages_case(d2, w, hm, mm_dtype, gen, label, timed=True):
     w2 = rand(hm, hm, scale=hm**-0.5)
     args = (a, c, d2, w, wd, b1, w2, b2)
     out = egnn_messages(*args, mm_dtype=mm_dtype)
+    again = egnn_messages(*args, mm_dtype=mm_dtype)
     ref = plain.egnn_messages(*args, mm_dtype=mm_dtype)
     torch.cuda.synchronize()
+    repeats = bool(torch.equal(out, again))
     err = float((out - ref).abs().max())
     scale = max(1.0, float(ref.abs().max()))
     # float32: the order of the sums only (Hm products a pair, up to N pairs
@@ -356,20 +361,47 @@ def _messages_case(d2, w, hm, mm_dtype, gen, label, timed=True):
     pairs = int((w != 0).sum())
     n_bytes = 4 * (3 * b * n * hm + 2 * b * n * n + hm * hm + 3 * hm)
     bound, by = bound_ms(n_bytes, pairs * (2 * hm * hm + 8 * hm), mm_dtype)
+    exps = 2 * hm * pairs  # the two SiLUs of each live pair, an exponential each
     case = {
         "kernel": "egnn_messages", "case": label, "shape": [b, n, hm],
         "mm_dtype": str(mm_dtype)[6:], "live_pairs": pairs, "dense_pairs": b * n * n,
         "padding_rows_zero": bool((out[w.abs().sum(-1) == 0] == 0).all()),
+        "repeats_bit_for_bit": repeats,
         "max_abs_err": err, "tol": tol, "ok": err <= tol,
         "bound_ms": bound, "bound_by": by, "library_ms": None,
+        # the exponentials' floor on the special-function units, at the
+        # highest SM clock (each SiLU also takes a reciprocal there)
+        "exps": exps, "exp_floor_ms": exps / (SFU_RESULTS_PER_CLOCK * sm_clock_hz()) * 1e3,
     }
-    case["ok"] = case["ok"] and case["padding_rows_zero"]
+    case["ok"] = (case["ok"] and case["padding_rows_zero"]
+                  and (repeats or mm_dtype == torch.float32))
     if timed:
         case["ms"] = time_ms(lambda: egnn_messages(*args, mm_dtype=mm_dtype))
         case["plain_ms"] = time_ms(
             lambda: plain.egnn_messages(*args, mm_dtype=mm_dtype), n=3, warmup=1
         )
     return case
+
+
+def _messages_refusal_case(gen):
+    """K3's bf16-product body keeps W2 in shared memory and takes Hm <= 256:
+    at Hm 257 the wrapper must raise before any launch."""
+    from coati_tpu_torch.ops.kernels.egnn_messages import FWD_MAX_HM, egnn_messages
+
+    d2, w = _random_geometry([5, 3], 5, gen)
+    hm = FWD_MAX_HM + 1
+    x = torch.zeros(2, 5, hm, device="cuda")
+    v, m = torch.zeros(hm, device="cuda"), torch.zeros(hm, hm, device="cuda")
+    before = egnn_messages.launches
+    try:
+        egnn_messages(x, x, d2, w, v, v, m, v, mm_dtype=torch.bfloat16)
+        message = None
+    except ValueError as exc:
+        message = str(exc)
+    launched = egnn_messages.launches - before
+    return {"kernel": "egnn_messages", "case": "refuses_hm_257", "shape": [2, 5, hm],
+            "mm_dtype": "bfloat16", "raised": message, "launches": launched,
+            "ok": message is not None and launched == 0}
 
 
 def _attention_bwd_case(b, t, h, dh, dtype, gen, timed=True):
@@ -599,6 +631,14 @@ def phase_kernels():
     cases.append(_messages_case(*_random_geometry([11, 5, 0], 11, gen), 32, f32, gen, "odd"))
     cases.append(_messages_case(*_random_geometry([11, 7, 3], 11, gen), 128, bf16, gen, "odd"))
     cases.append(_messages_case(*_random_geometry([9, 130], 130, gen), 20, f32, gen, "odd"))
+    # K3's bf16 body at its edges: Hm not a multiple of 16 or 64 (W2 and e1
+    # padded to 64, 128, 192, 256), N not a multiple of 8 and up to 130, a
+    # lone atom, an all-padding molecule
+    for counts, n, hm in (([11, 5, 0], 11, 20), ([9, 130, 0, 1], 130, 200),
+                          ([37, 0, 20, 1], 37, 100), ([13, 2, 1], 13, 136)):
+        cases.append(_messages_case(*_random_geometry(counts, n, gen), hm, bf16, gen, "edge",
+                                    timed=False))
+    cases.append(_messages_refusal_case(gen))
     d2, w, _ = _fixture_geometry()
     for mm in (f32, bf16):
         cases.append(_messages_case(d2, w, 256, mm, gen, "fixture"))
@@ -619,7 +659,8 @@ def phase_kernels():
         "decode_attention": {"shape": [1024, 250, 16, 16], "q_dtype": "bfloat16", "pos": 95},
         "decode_attention_quant": {"shape": [1024, 250, 16, 16], "q_dtype": "bfloat16",
                                    "pos": 95},
-        "egnn_messages": {"case": "fixture", "mm_dtype": "float32"},
+        # the production mode: the points path and the trainer run bf16
+        "egnn_messages": {"case": "fixture", "mm_dtype": "bfloat16"},
         "packed_causal_attention": {"shape": [1024, 96, 16, 16], "dtype": "bfloat16"},
         # the trainer's shapes: bf16, batch 160, the recipe's cutoff
         "egnn_messages_backward": {"case": "fixture160_cutoff12", "mm_dtype": "bfloat16"},

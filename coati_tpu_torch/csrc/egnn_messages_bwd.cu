@@ -31,7 +31,8 @@
 // bf16 mode: tensor cores (egnn_messages_bwd_bf16_kernel).
 //  * clusters of 4 blocks (16 warps each at Hm > 128, else 8), persistent:
 //    Q clusters, as many as fit on the card at once. A first small kernel
-//    (egnn_messages_bwd_costs_kernel) counts each work item's live pairs
+//    (egnn_item_costs_kernel, egnn_items.cuh, shared with K3's bf16 body)
+//    counts each work item's live pairs
 //    and sums the items' costs (8 a chunk of 64 pairs, 1 an item); cluster
 //    q takes the items whose cost starts in the q-th of Q equal ranges of
 //    the sum. Items differ up to 16x in pairs (molecules of 15-98 atoms,
@@ -84,6 +85,7 @@
 #include <cooperative_groups.h>
 
 #include "common.cuh"
+#include "egnn_items.cuh"
 #include "mma.cuh"
 
 namespace cg = cooperative_groups;
@@ -507,54 +509,6 @@ __host__ __device__ inline long long bf16_smem_bytes(int n, int sw) {
          12LL * kTileI * n;
 }
 
-// The bf16 body's work split, launched before it. cost[item] = 8 x the
-// chunks of 64 live pairs of the work item (molecule b, atoms i0 .. i0 + 7),
-// rounded up, + 1 for the item's own overhead; then the last block to
-// finish turns the costs into their inclusive prefix sums, in place, and
-// the clusters take equal ranges of the sum.
-constexpr int kCostWarps = 8;
-
-__global__ void __launch_bounds__(32 * kCostWarps) egnn_messages_bwd_costs_kernel(
-    const float* __restrict__ w, long long* __restrict__ cost, unsigned* __restrict__ done,
-    int batch, int n) {
-  const int tiles = (n + kTileI - 1) / kTileI;
-  const int items = batch * tiles;
-  const int lane = threadIdx.x & 31;
-  const int item = blockIdx.x * kCostWarps + (threadIdx.x >> 5);
-  if (item < items) {  // a warp an item
-    const int b = item / tiles, i0 = (item - b * tiles) * kTileI;
-    const int cells = min(kTileI, n - i0) * n;
-    const float* wb = w + (static_cast<long long>(b) * n + i0) * n;
-    unsigned count = 0;
-    for (int e = lane; e < cells; e += 32) count += wb[e] != 0.f;
-    count = __reduce_add_sync(0xffffffffu, count);
-    if (lane == 0) cost[item] = 8LL * ((count + kBM - 1) / kBM) + 1;
-  }
-  __shared__ bool last;
-  __shared__ long long sums[32 * kCostWarps];
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(done, 1u) == gridDim.x - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  // a contiguous run of items a thread, then the runs' sums in order
-  const int per = (items + blockDim.x - 1) / blockDim.x;
-  const int lo = threadIdx.x * per, hi = min(items, lo + per);
-  long long s = 0;
-  for (int k = lo; k < hi; ++k) s += __ldcg(cost + k);
-  sums[threadIdx.x] = s;
-  __syncthreads();
-  if (threadIdx.x == 0)
-    for (int k = 1; k < blockDim.x; ++k) sums[k] += sums[k - 1];
-  __syncthreads();
-  long long run = threadIdx.x ? sums[threadIdx.x - 1] : 0;
-  for (int k = lo; k < hi; ++k) {
-    run += __ldcg(cost + k);
-    cost[k] = run;
-  }
-}
-
 template <int SW>
 __global__ void __launch_bounds__(32 * tc_warps(SW), 1) egnn_messages_bwd_bf16_kernel(
     const float* __restrict__ a, const float* __restrict__ c, const float* __restrict__ d2,
@@ -652,31 +606,18 @@ __global__ void __launch_bounds__(32 * tc_warps(SW), 1) egnn_messages_bwd_bf16_k
   const int items = batch * tiles;
 
   // the cluster's items: those whose cost starts in its range of the
-  // costs' sum [lo, hi) (the last cluster's includes the end), the same in
-  // every block of the cluster and on every launch with the same w
-  auto start = [&](int item) { return item == 0 ? 0LL : cost[item - 1]; };
-  const long long all = cost[items - 1];
-  const long long lo = all * cl / n_clusters;
-  const long long hi = cl == n_clusters - 1 ? all + 1 : all * (cl + 1) / n_clusters;
-  int first = 0;
-  for (int span = items; span > 0;) {  // the first item starting at lo or later
-    const int half = span / 2;
-    if (start(first + half) < lo) {
-      first += half + 1;
-      span -= half + 1;
-    } else {
-      span = half;
-    }
-  }
-
-  for (int item = first; item < items && start(item) < hi; ++item) {
+  // costs' sum, the same in every block of the cluster and on every launch
+  // with the same w
+  int first, end;
+  coati::item_range(cost, items, cl, n_clusters, &first, &end);
+  for (int item = first; item < end; ++item) {
     const int b = item / tiles;
     const int i0 = (item - b * tiles) * kTileI;
     const int rows = min(kTileI, n - i0);
     const long long tile_at = static_cast<long long>(b) * n + i0;
     const float* cb = c + static_cast<long long>(b) * n * hm;
     float* dcb = dc + static_cast<long long>(b) * n * hm;
-    if (cost[item] - start(item) == 1) {  // no live pair: da is zero
+    if (cost[item] - coati::item_start(cost, item) == 1) {  // no live pair: da is zero
       for (int e = tid; e < rows * SW; e += THREADS) {
         const int k = s0 + e % SW;
         if (k < hm) da[(tile_at + e / SW) * hm + k] = 0.f;
@@ -1070,8 +1011,8 @@ int launch_bf16(const float* const* in, float* const* out, float* scratch, unsig
   // the items' costs follow the clusters' partial gradients in the scratch
   auto* cost = reinterpret_cast<long long*>(scratch + partials_floats(clusters, SW));
   const int items = batch * ((n + kTileI - 1) / kTileI);
-  egnn_messages_bwd_costs_kernel<<<(items + kCostWarps - 1) / kCostWarps, 32 * kCostWarps, 0,
-                                   stream>>>(in[3], cost, done + kCluster, batch, n);
+  coati::egnn_item_costs_kernel<<<coati::item_cost_blocks(items), 32 * coati::kCostWarps, 0,
+                                  stream>>>(in[3], cost, done + kCluster, batch, n);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   cfg.gridDim = dim3(kCluster * clusters);

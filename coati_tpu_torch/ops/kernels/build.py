@@ -29,7 +29,7 @@ SOURCES = (
     "flash_attention", "decode_attention", "egnn_messages", "packed_attention",
     "egnn_messages_bwd", "packed_attention_bwd",
 )
-HEADERS = ("common.cuh", "mma.cuh")  # every header a source includes: hashed into each library
+HEADERS = ("common.cuh", "mma.cuh", "egnn_items.cuh")  # every header a source includes: hashed into each library
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

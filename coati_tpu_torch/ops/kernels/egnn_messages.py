@@ -23,7 +23,11 @@ JAX package they are cast to float32 for the kernels, which compute in
 float32, and each result is cast back to its input's dtype. mm_dtype
 bfloat16 is the JAX package's egnn_messages_bf16: the inputs of the inner
 products are rounded to bf16 first, and the products accumulate in float32.
-K4's bf16-product mode runs on the tensor cores, in persistent clusters of
+K3's bf16-product mode runs on the tensor cores in a persistent grid with W2
+resident in each block (`fwd_work_split`, `fwd_smem_bytes`); its output
+repeats bit for bit. Its float32 mode runs on CUDA cores and adds each
+tile's partial sums by shared-memory atomics. K4's bf16-product mode runs on
+the tensor cores, in persistent clusters of
 4 blocks that each own a quarter of W2's columns (`bwd_work_split`); da and
 its parameter gradients are summed in a fixed order and repeat bit for bit,
 while dc (float32 atomics, one per run of pairs with one partner) may
@@ -43,7 +47,10 @@ from coati_tpu_torch.ops.kernels import build
 
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_SHARED_BYTES = 232448  # what one block may ask for on an H100
-_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# K3's bf16-product body keeps W2 (Hp x Hp, Hp: Hm rounded up to 64) in
+# shared memory, so Hm <= 256
+FWD_MAX_HM = 256
 
 
 _BWD_ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -58,7 +65,7 @@ def _library():
     lib = build.load("egnn_messages")
     lib.egnn_messages.argtypes = _ARGTYPES
     lib.egnn_messages.restype = ctypes.c_int
-    lib.egnn_messages_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.egnn_messages_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.egnn_messages_smem_bytes.restype = ctypes.c_longlong
     return lib
 
@@ -73,6 +80,34 @@ def _bwd_library():
         ctypes.POINTER(ctypes.c_longlong)]
     lib.egnn_messages_bwd_clusters.restype = ctypes.c_int
     return lib
+
+
+def fwd_padded_width(hm: int) -> int:
+    """Width of the W2 and e1 tiles of K3's bf16 body: Hm rounded up to
+    64; 0 above 256, which it refuses."""
+    return -(-hm // 64) * 64 if hm <= FWD_MAX_HM else 0
+
+
+def fwd_smem_bytes(n: int, hm: int) -> int:
+    """Shared memory of one block of K3's bf16 body (csrc/egnn_messages.cu
+    bf16_smem_bytes): W2 (Hp x Hp) and two 64-pair e1 tiles (64 x Hp) in
+    bf16; in float32 the sums of the first and last atom of each of the 8
+    row ranges (2 x 8 x Hp; the item's rows of w, 8 x N, while its pairs are
+    listed), the item's a rows (8 x Hp), its pair list (8 N ints), the two
+    chunks' row atoms and weights (2 x 64 each), and 24 counters."""
+    hp = fwd_padded_width(hm)
+    return 2 * hp * hp + 2 * 2 * 64 * hp + 4 * (max(16 * hp, 8 * n) + 8 * hp + 8 * n + 256 + 24)
+
+
+def fwd_work_split(b: int, n: int, hm: int) -> dict:
+    """How K3's bf16 body splits its work: the work items (molecule, 8
+    atoms i), which the blocks of a persistent grid (as many as fit the card;
+    one an SM at Hm 256) take in ranges of equal cost; the padded width; the
+    warps of a block (one per 16 columns of z2); and the int64 costs, one an
+    item, in the scratch the launch needs."""
+    hp = fwd_padded_width(hm)
+    items = b * -(-n // 8)
+    return {"items": items, "padded_width": hp, "warps": hp // 16, "scratch_int64": items}
 
 
 def bwd_slice_width(hm: int) -> int:
@@ -163,6 +198,11 @@ def _check_inputs(a, c, d2, w, wd, b1, w2, b2, mm_dtype) -> None:
         raise ValueError(f"egnn_messages: empty input or batch above 65535: {tuple(a.shape)}")
 
 
+def _check_bf16_width(a, mm_dtype, what: str, most: int) -> None:
+    if mm_dtype == torch.bfloat16 and a.dim() == 3 and a.shape[-1] > most:
+        raise ValueError(f"{what}: the bf16-product kernel takes Hm <= {most}, got {a.shape[-1]}")
+
+
 def _check_shared(need: int, n: int, hm: int, what: str) -> None:
     if need > MAX_SHARED_BYTES:
         raise ValueError(
@@ -175,15 +215,25 @@ def _forward(a, c, d2, w, wd, b1, w2, b2, mm_dtype) -> torch.Tensor:
     """K3 on CUDA tensors, its plain version on CPU tensors."""
     if a.device.type == "cpu":
         return plain.egnn_messages(a, c, d2, w, wd, b1, w2, b2, mm_dtype=mm_dtype)
+    _check_bf16_width(a, mm_dtype, "egnn_messages", FWD_MAX_HM)  # before anything is built
     _check_inputs(a, c, d2, w, wd, b1, w2, b2, mm_dtype)
     b, n, hm = a.shape
+    bf16 = mm_dtype == torch.bfloat16
     lib = _library()
-    _check_shared(lib.egnn_messages_smem_bytes(n, hm), n, hm, "egnn_messages")
+    _check_shared(lib.egnn_messages_smem_bytes(n, hm, int(bf16)), n, hm, "egnn_messages")
     args = [x.detach().float().contiguous() for x in (a, c, d2, w, wd, b1, w2, b2)]
+    extra = (None, None)
+    if bf16:
+        if args[1].data_ptr() % 16:  # the bf16 body reads rows of c 16 bytes at a time
+            args[1] = args[1].clone()
+        cost = torch.empty(fwd_work_split(b, n, hm)["scratch_int64"], dtype=torch.int64,
+                           device=a.device)
+        done = torch.zeros(1, dtype=torch.int32, device=a.device)
+        extra = (cost.data_ptr(), done.data_ptr())
     out = torch.empty((b, n, hm), dtype=torch.float32, device=a.device)
     err = lib.egnn_messages(
-        *(x.data_ptr() for x in args), out.data_ptr(), b, n, hm,
-        int(mm_dtype == torch.bfloat16), build.stream_handle(a.device),
+        *(x.data_ptr() for x in args), out.data_ptr(), *extra, b, n, hm, int(bf16),
+        build.stream_handle(a.device),
     )
     build.check(err, "egnn_messages kernel")
     egnn_messages.launches += 1
@@ -204,9 +254,7 @@ def egnn_messages_backward(a, c, d2, w, wd, b1, w2, b2, g, mm_dtype=torch.float3
         )
     b, n, hm = a.shape
     bf16 = mm_dtype == torch.bfloat16
-    if bf16 and hm > BWD_MAX_HM:
-        raise ValueError(
-            f"egnn_messages_backward: the bf16-product kernel takes Hm <= {BWD_MAX_HM}, got {hm}")
+    _check_bf16_width(a, mm_dtype, "egnn_messages_backward", BWD_MAX_HM)
     lib = _bwd_library()
     _check_shared(lib.egnn_messages_bwd_smem_bytes(n, hm, int(bf16)), n, hm,
                   "egnn_messages_backward")

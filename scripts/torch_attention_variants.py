@@ -4,7 +4,7 @@ K5f, csrc/packed_attention.cu; K5b, csrc/packed_attention_bwd.cu), timed
 side by side on one CUDA card.
 
     python3 scripts/torch_attention_variants.py [--out FILE] [--only k5b,...]
-                                                [--csrc DIR]
+                                                [--csrc DIR] [--parent DIR]
 
 from the repository root, on a machine with one CUDA card and nvcc. Each
 variant is a copy of a kernel's source and of the shared headers with some
@@ -12,9 +12,12 @@ text replaced, built with the flags of ops/kernels/build.py into a scratch
 directory, loaded with ctypes and called through the same C entry point as
 the library it copies; `base` replaces nothing. --csrc takes the sources
 from another directory (an unpacked older commit's coati_tpu_torch/csrc),
-so that one script measures both; a variant lists one set of edits for
-each version of a source it knows, and the first set whose every text is
-found applies (a variant with none is reported as skipped). Times come
+so that one script measures both, and --parent builds each chosen source
+as it stands in another directory beside them (label `parent`), so that
+one run times an older commit's kernel and this one's. A variant lists
+one set of edits for each version of a source it knows, and the first set
+whose every text is found applies (a variant with none is reported as
+skipped). Times come
 from chip_smoke.time_ms (median of 25 launches, L2 flushed before each),
 all in one process, on the main paths' shapes (bf16, H 16, Dh 16). Each
 result says whether it agrees with the plain version within
@@ -131,15 +134,21 @@ K5B_SHAPES = ((160, 80), (160, 48), (160, 32), (1024, 96), (1024, 128))
 H, DH = 16, 16
 
 
-def build_variants(variants, workdir: Path, csrc: Path, headers=build.HEADERS):
+def build_variants(variants, workdir: Path, csrc: Path, headers=build.HEADERS, parent=None):
     """Compile every variant of `variants` whose edits apply to the sources
-    in `csrc`, all at once; returns {(source, label): (loaded library, the
-    variant's source text)}, {(source, label): ptxas usage of its kernels}
-    and the labels skipped because no set of edits applied."""
+    in `csrc`, all at once, and with `parent` (another directory of sources)
+    each variant source's unedited copy from there, labelled `parent`;
+    returns {(source, label): (loaded library, the variant's source text)},
+    {(source, label): ptxas usage of its kernels} and the labels skipped
+    because no set of edits applied."""
     jobs, skipped = [], []
-    for source, label, alternatives in variants:
-        files = {f: (csrc / f).read_text() for f in (f"{source}.cu", *headers)
-                 if (csrc / f).exists()}
+    todo = [(source, label, alternatives, csrc) for source, label, alternatives in variants]
+    if parent:
+        todo += [(source, "parent", [[]], Path(parent))
+                 for source in dict.fromkeys(v[0] for v in variants)]
+    for source, label, alternatives, directory in todo:
+        files = {f: (directory / f).read_text() for f in (f"{source}.cu", *headers)
+                 if (directory / f).exists()}
         edits = next((e for e in alternatives
                       if all(f in files and text in files[f] for f, text, _ in e)), None)
         if edits is None:
@@ -269,6 +278,10 @@ def run(description: str, variants, kernels, measure_fn) -> int:
     parser.add_argument("--out", help="also append every JSON line to this file")
     parser.add_argument("--csrc", default=str(build.CSRC_DIR),
                         help="directory of the CUDA sources to vary (default: the package's)")
+    parser.add_argument("--parent",
+                        help="also build each chosen source unedited from this directory "
+                             "(an older commit's coati_tpu_torch/csrc), labelled parent, "
+                             "to time the two in one run")
     parser.add_argument("--only", default=",".join(kernels),
                         help=f"comma-separated kernels, of {','.join(kernels)}")
     args = parser.parse_args()
@@ -287,10 +300,11 @@ def run(description: str, variants, kernels, measure_fn) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True)
     emit({"card": smi.stdout.strip(), "sm_clock_mhz": cs.sm_clock_hz() / 1e6,
-          "csrc": args.csrc})
+          "csrc": args.csrc, "parent": args.parent})
     with tempfile.TemporaryDirectory() as tmp:
         libs, usage, skipped = build_variants(
-            [v for v in variants if v[0] in chosen], Path(tmp), Path(args.csrc))
+            [v for v in variants if v[0] in chosen], Path(tmp), Path(args.csrc),
+            parent=args.parent)
         for (source, label), u in usage.items():
             emit({"variant": f"{source}/{label}", "ptxas": u})
         if skipped:

@@ -146,6 +146,167 @@ def test_message_wrapper_refuses_what_the_kernel_does_not_take():
         kmsg._check_inputs(a, a, p, p, v, v, m, v, torch.float16)
 
 
+# ------------------------------------- K3's bf16-product body (tensor cores)
+
+
+@pytest.mark.parametrize("hm,padded", [(20, 64), (64, 64), (100, 128), (136, 192), (200, 256),
+                                       (256, 256), (257, 0)])
+def test_message_forward_work_split_and_shared_memory(hm, padded):
+    """K3's bf16 body: W2 and the e1 tiles are Hm rounded up to 64 wide
+    (Hm above 256 is refused), a warp owns 16 columns, the work items are
+    (molecule, 8 atoms), and the scratch holds an int64 cost an item. Its
+    shared memory holds W2 and two 64-pair e1 tiles in bf16, the 8 ranges'
+    first and last sums (the item's 8 rows of w while its pairs are listed),
+    the item's a rows, its pair list, two chunks' row atoms and weights and
+    24 counters: inside one block's 227 KB at the points path's and the
+    trainer's N 128 and Hm 256, and at N 130. The Python helpers mirror
+    csrc/egnn_messages.cu."""
+    source = (kmsg.build.CSRC_DIR / "egnn_messages.cu").read_text()
+    assert f"constexpr int kMaxHm = {kmsg.FWD_MAX_HM};" in source
+    assert kmsg.fwd_padded_width(hm) == padded
+    if not padded:  # the wrapper raises before it builds anything
+        return
+    assert kmsg.fwd_work_split(1024, 128, hm) == {
+        "items": 1024 * 16, "padded_width": padded, "warps": padded // 16,
+        "scratch_int64": 1024 * 16}
+    assert kmsg.fwd_work_split(3, 11, hm)["items"] == 3 * 2
+    w2, tiles = 2 * padded * padded, 2 * 2 * 64 * padded
+    sums = 4 * 2 * 8 * padded  # 2 x 8 x 128 floats: the item's w fits in it at N 128
+    fixed = 4 * (8 * padded + 8 * 128 + 2 * 2 * 64 + 3 * 8)
+    assert kmsg.fwd_smem_bytes(128, hm) == w2 + tiles + sums + fixed
+    assert kmsg.fwd_smem_bytes(130, hm) <= kmsg.MAX_SHARED_BYTES
+    # two more atoms: the pair list grows, and at Hp 64 the w rows outgrow the sums
+    assert kmsg.fwd_smem_bytes(130, hm) - kmsg.fwd_smem_bytes(128, hm) == (
+        4 * 8 * 2 + (4 * 8 * 2 if padded == 64 else 0))
+    if hm == 256:
+        assert kmsg.fwd_smem_bytes(128, hm) == 226400
+
+
+def test_message_wrapper_refuses_bf16_above_256_before_building(monkeypatch):
+    """The bf16 body keeps W2 in shared memory: the wrapper refuses Hm 257
+    in that mode before it builds or loads anything; the float32 body takes
+    that width (these meta tensors then fail the device check)."""
+    def no_build(*args, **kwargs):
+        raise AssertionError("the wrapper built a library")
+
+    monkeypatch.setattr(kmsg.build, "load", no_build)
+    meta = torch.device("meta")
+    hm = kmsg.FWD_MAX_HM + 1
+    a = torch.empty(2, 5, hm, device=meta)
+    p = torch.empty(2, 5, 5, device=meta)
+    v, m = torch.empty(hm, device=meta), torch.empty(hm, hm, device=meta)
+    before = kmsg.egnn_messages.launches
+    with pytest.raises(ValueError, match="Hm <= 256, got 257"):
+        kmsg._forward(a, a, p, p, v, v, m, v, torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        kmsg._forward(a, a, p, p, v, v, m, v, torch.float32)
+    assert kmsg.egnn_messages.launches == before
+
+
+def _emulate_bf16_body(a, c, d2, w, wd, b1, w2, b2):
+    """K3's bf16 body (csrc/egnn_messages.cu) in torch, in its order of
+    products and sums: per work item (molecule, 8 atoms) the live pairs by
+    atom, then partner, cut into 8 ranges of ceil(P / 8); e1 = silu(((a + c)
+    + d2 wd) + b1) rounded to bf16, z2 = e1 W2 (bf16 W2, float32 sums), m = w
+    silu(z2 + b2); each range sums its pairs in order, atom by atom; an atom
+    wholly inside a range is written when its run ends, the first and last
+    atom of each range are added over the ranges in range order; atoms
+    without a live pair get zero."""
+    a, c, d2, w, wd, b1, w2, b2 = (torch.as_tensor(x, dtype=torch.float32)
+                                   for x in (a, c, d2, w, wd, b1, w2, b2))
+    b_sz, n, hm = a.shape
+    w2r = w2.to(torch.bfloat16).float()
+    out = torch.full((b_sz, n, hm), float("nan"))
+    for b in range(b_sz):
+        for i0 in range(0, n, 8):
+            rows = min(8, n - i0)
+            live = [(il, j) for il in range(rows) for j in range(n) if w[b, i0 + il, j] != 0]
+            out[b, i0:i0 + rows] = 0.0
+            if not live:
+                continue
+            il_ix = torch.tensor([il for il, _ in live])
+            j_ix = torch.tensor([j for _, j in live])
+            z1 = ((a[b, i0 + il_ix] + c[b, j_ix]) + d2[b, i0 + il_ix, j_ix, None] * wd) + b1
+            e1 = torch.nn.functional.silu(z1).to(torch.bfloat16).float()
+            msg = w[b, i0 + il_ix, j_ix, None] * torch.nn.functional.silu(e1 @ w2r + b2)
+            span = -(-len(live) // 8)  # pairs a range; a chunk takes 8 of each
+            ends = {}  # (range, "first" | "last") -> (atom, sum)
+            for g in range(8):
+                runs = []  # (atom, running sum in list order)
+                for p in range(g * span, min(len(live), (g + 1) * span)):
+                    if not runs or runs[-1][0] != live[p][0]:
+                        runs.append([live[p][0], torch.zeros(hm)])
+                    runs[-1][1] = runs[-1][1] + msg[p]
+                for k, (il, total) in enumerate(runs):
+                    if k == 0:
+                        ends[g, "first"] = (il, total)
+                    elif k == len(runs) - 1:
+                        ends[g, "last"] = (il, total)
+                    else:  # wholly inside the range
+                        out[b, i0 + il] = total
+            for il in range(rows):
+                pieces = [ends[g, end][1] for g in range(8) for end in ("first", "last")
+                          if ends.get((g, end), (None,))[0] == il]
+                if pieces:
+                    total = torch.zeros(hm)
+                    for piece in pieces:
+                        total = total + piece
+                    out[b, i0 + il] = total
+    return out
+
+
+def _pallas_forward_interpret(a, c, d2, w, wd, b1, w2, b2, mm_dtype):
+    """The TPU forward kernel's body under pl.pallas_call in interpret mode,
+    with the block layout of the package's _fwd_pallas (which has no
+    interpret switch) on inputs padded by its _pad_all."""
+    b_sz, n, hm = a.shape
+    a_p, c_p, d2_p, w_p, tile_b = jmsg._pad_all(a, c, d2, w, tile_fn=jmsg.fwd_tile_b)
+    bp, ni, nj = a_p.shape[0], a_p.shape[1], c_p.shape[1]
+
+    def rows(r, width):
+        return pl.BlockSpec((tile_b, r, width), lambda i: (i, 0, 0))
+
+    def shared(r):
+        return pl.BlockSpec((r, hm), lambda i: (0, 0))
+
+    out = pl.pallas_call(
+        functools.partial(jmsg._fwd_kernel, mm_dtype=mm_dtype, tile_b=tile_b,
+                          subtiles=tuple(jmsg._j_subtiles(nj))),
+        grid=(bp // tile_b,),
+        in_specs=[rows(ni, hm), rows(nj, hm), rows(ni, nj), rows(ni, nj), shared(1), shared(1),
+                  shared(hm), shared(1)],
+        out_specs=rows(ni, hm),
+        out_shape=jax.ShapeDtypeStruct((bp, ni, hm), jnp.float32),
+        interpret=True,
+    )(a_p, c_p, d2_p, w_p, wd.reshape(1, hm), b1.reshape(1, hm), w2, b2.reshape(1, hm))
+    return out[:b_sz, :n]
+
+
+@pytest.mark.parametrize(
+    "b,n,hm,live",
+    [(3, 11, 32, (11, 1, 0)), (2, 20, 72, (20, 13)), (2, 9, 136, (9, 6))],
+    ids=["lone_atom_and_all_padding", "several_chunks_odd_width", "wide_odd"],
+)
+def test_message_bf16_body_emulation_matches_plain_and_tpu_kernel(b, n, hm, live):
+    """The bf16 body's order of products and sums, emulated, against the
+    plain version's bf16-product mode and against the TPU kernel's body in
+    interpret mode (bf16 MXU inputs): within half the chip's tolerance of
+    1e-3 x max(1, max |plain|). w has dead rows and columns, a ragged live
+    prefix, a lone atom and an all-padding molecule; atoms without a live
+    pair come out exactly zero."""
+    args = _holes(_message_inputs(b, n, hm, seed=b * n + hm, live=live))
+    mine = _emulate_bf16_body(*args)
+    ref = plain.egnn_messages(*(_t(x) for x in args), mm_dtype=torch.bfloat16)
+    tpu = _pallas_forward_interpret(*(jnp.asarray(x) for x in args), jnp.bfloat16)
+    tol = 0.5e-3 * max(1.0, float(ref.abs().max()))
+    _close(mine, ref.numpy(), atol=tol, rtol=0)
+    _close(mine, np.asarray(tpu), atol=tol, rtol=0)
+    dead = args[3].sum(-1) == 0
+    assert dead.any() and not mine[torch.as_tensor(dead)].any()
+    if n == 20:  # items of 8 atoms with up to 19 partners each: more than one chunk of 64
+        assert max((args[3][m, i0:i0 + 8] != 0).sum() for m in range(b) for i0 in (0, 8)) > 64
+
+
 # ------------------------------------------------- the message backward (K4)
 
 GRAD_ARGS = (0, 1, 4, 5, 6, 7)  # a, c, wd, b1, w2, b2: d2 and w get no gradient
