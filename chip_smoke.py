@@ -10,17 +10,20 @@ Phases, in order; any failure ends the run with a non-zero exit:
 
  1. build: nvcc builds every kernel under coati_tpu_torch/csrc for sm_90a,
     one process per source, all at once; ptxas's registers and spills of
-    each kernel are reported, and the bf16 tensor-core kernels must not spill.
+    each kernel are reported, and the bf16 tensor-core kernels and every
+    form of K1 must not spill.
  2. kernels: each kernel against its plain PyTorch version on the card, on
     the main paths' shapes (for the tensor-core bodies also the edges of
-    their tiles, the other head sizes and the trainer's shapes; K5b, K3's
-    bf16 body and all but dc of K4's must repeat bit for bit over two
-    launches; K3's bf16 body must refuse Hm 257 before any launch), within
-    a stated tolerance; each timed with CUDA events (median of 25 launches after
-    warm-up, L2 flushed before each, the host's launch hidden behind a spin
-    on the card), beside its bound and, where one PyTorch call computes the
-    same function, that call (a yardstick only: the port never calls it);
-    K2, K5f and K3 also beside the floor of their exponentials. Then routing:
+    their tiles, the other head sizes and the trainer's shapes; K1 in every
+    form at the positions the paths decode, 3 to about 40, and at 0, 95 and
+    249; K1, K5b, K3's bf16 body and all but dc of K4's must repeat bit for
+    bit over two launches; K3's bf16 body must refuse Hm 257 before any
+    launch), within a stated tolerance; each timed with CUDA events (median
+    of 25 launches after warm-up, L2 flushed before each, the host's launch
+    hidden behind a spin on the card), beside its bound and, where one
+    PyTorch call computes the same function, that call (a yardstick only:
+    the port never calls it); K2, K5f and K3 also beside the floor of their
+    exponentials. Then routing:
     forward + backward of the trainer's attention through K5f + K5b and
     through K2 + its replayed plain backward, side by side.
  3. paths: the trained grande document docs/eval_model_r5.pkl on the card,
@@ -41,6 +44,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
     packed: the total_len 96 production round trip again under
     prefill_kernel="packed", which sends every full-sequence attention to
     the short-sequence kernel.
+    k1_positions: after the paths, K1's int8 form timed at every position
+    each production round trip decoded, and its time in each call weighted
+    by those launches, beside its bound and the same launches priced at
+    pos 95. Every traced call lists the device time of each of the port's
+    kernels by name.
     train: train_autoencoder with the grande recipe (16 x 256 transformer,
     5 x 256 EGNN, bf16 over float32 masters, batch 160, n_seq 80, remat of
     the transformer blocks) on the fixture's molecules, from a seeded fresh
@@ -132,13 +140,13 @@ def check(cond: bool, what: str) -> None:
 _FLUSH = None
 
 
-def time_ms(fn, n: int = 25, warmup: int = 3, spin: int = 200_000) -> float:
+def time_ms(fn, n: int = 25, warmup: int = 3, spin: int = 200_000, flush=None) -> float:
     """Median device time of fn() in ms, by CUDA events around each call,
-    with a 256 MB write before each to evict the 50 MB L2. A spin of `spin`
-    clock cycles on the card (about 0.1 ms by default) follows the write,
-    so that the host has enqueued the start event and fn's kernels before
-    the card reaches them: the time between the events is the card's, not
-    the host's launch."""
+    with a 256 MB write before each to evict the 50 MB L2 (or `flush()`).
+    A spin of `spin` clock cycles on the card (about 0.1 ms by default)
+    follows it, so that the host has enqueued the start event and fn's
+    kernels before the card reaches them: the time between the events is
+    the card's, not the host's launch."""
     global _FLUSH
     if _FLUSH is None:
         _FLUSH = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
@@ -146,7 +154,10 @@ def time_ms(fn, n: int = 25, warmup: int = 3, spin: int = 200_000) -> float:
         fn()
     events = []
     for _ in range(n):
-        _FLUSH.zero_()
+        if flush:
+            flush()
+        else:
+            _FLUSH.zero_()
         torch.cuda._sleep(spin)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
@@ -252,13 +263,14 @@ def phase_build():
     emit({"phase": "build", "sources": list(build.SOURCES), "seconds": round(seconds, 2),
           "arch": "sm_90a", "ptxas": usage})
     # the tensor-core bodies keep their scores (attention), their dW2 slice
-    # (K4) and their z2 tile and range sums (K3) in registers: a spill would
-    # put them in local memory
+    # (K4) and their z2 tile and range sums (K3) in registers, and K1 every
+    # form its two chunks of the cache in flight: a spill would put them in
+    # local memory
     spilled = [k for src in ("flash_attention", "packed_attention", "packed_attention_bwd",
-                             "egnn_messages_bwd", "egnn_messages")
+                             "egnn_messages_bwd", "egnn_messages", "decode_attention")
                for k, u in usage.get(src, {}).items()
-               if "bf16" in k and u.get("spill_bytes", 0) > 0]
-    check(not spilled, f"bf16 tensor-core kernels spill registers: {spilled}")
+               if ("bf16" in k or src == "decode_attention") and u.get("spill_bytes", 0) > 0]
+    check(not spilled, f"kernels spill registers: {spilled}")
 
 
 def _attention_case(name, b, t, h, dh, dtype, gen):
@@ -536,16 +548,17 @@ def _decode_case(b, t, h, dh, pos, q_dtype, kv, gen):
         ops_dtype = kv
         q4, kl, vl = q[:, :, None, :], k[:, :live].transpose(1, 2), v[:, :live].transpose(1, 2)
         library = lambda: torch.nn.functional.scaled_dot_product_attention(q4, kl, vl)  # noqa: E731
-    out, ref = run(), run_plain()
+    out, again, ref = run(), run(), run_plain()
     torch.cuda.synchronize()
     err = float((out.float() - ref.float()).abs().max())
     # int8 with a float32 query compares in float32, before any final cast
     tol = tolerance(ref, q_dtype, 1e-4 if isinstance(kv, str) else 1e-5)
     bound, by = bound_ms(n_bytes, 4 * b * h * live * dh, ops_dtype)
+    repeats = bool(torch.equal(out, again))  # the states merge in a fixed order
     return {
         "kernel": name, "shape": [b, t, h, dh], "pos": pos, "q_dtype": str(q_dtype)[6:],
         "kv": kv if isinstance(kv, str) else str(kv)[6:],
-        "max_abs_err": err, "tol": tol, "ok": err <= tol,
+        "max_abs_err": err, "tol": tol, "repeats": repeats, "ok": err <= tol and repeats,
         "ms": time_ms(run), "plain_ms": time_ms(run_plain), "bound_ms": bound, "bound_by": by,
         "library_ms": time_ms(library) if library else None,
     }
@@ -643,13 +656,22 @@ def phase_kernels():
     for mm in (f32, bf16):
         cases.append(_messages_case(d2, w, 256, mm, gen, "fixture"))
     del d2, w
-    for pos in (0, 95, 249):
+    # K1: the paths decode from pos 3 (after [CLIP][UNK][SMILES]) to about
+    # 15 (SMILES) and 36 (points); 0, 95 and 249 are the cache's edges and
+    # middle. Every form at every position, and odd widths and head sizes
+    for pos in (0, 3, 15, 36, 95, 249):
         cases.append(_decode_case(1024, 250, 16, 16, pos, bf16, bf16, gen))
         cases.append(_decode_case(1024, 250, 16, 16, pos, f32, "int8/float32", gen))
         cases.append(_decode_case(1024, 250, 16, 16, pos, f32, "int8/bfloat16", gen))
         cases.append(_decode_case(1024, 250, 16, 16, pos, bf16, "int8/float32", gen))
-    cases.append(_decode_case(64, 250, 16, 16, 95, f32, f32, gen))  # the fp32 round trip's
+        cases.append(_decode_case(64, 250, 16, 16, pos, f32, f32, gen))  # the fp32 round trip's
     cases.append(_decode_case(3, 40, 4, 32, 17, f32, f32, gen))
+    for pos in (0, 17, 39):
+        for kv in (bf16, "int8/float32", "int8/bfloat16"):
+            cases.append(_decode_case(5, 40, 16, 32, pos, bf16, kv, gen))  # COATI2-grande's Dh
+        cases.append(_decode_case(3, 40, 6, 16, pos, f32, f32, gen))  # H not a power of two
+        cases.append(_decode_case(3, 40, 6, 16, pos, bf16, "int8/float32", gen))
+        cases.append(_decode_case(2, 40, 64, 16, pos, f32, "int8/float32", gen))  # H 64
     for case in cases:
         emit({"phase": "kernel", **case})
     bad = [c for c in cases if not c["ok"]]
@@ -877,6 +899,7 @@ def _production(prod, tok, label, total_len, full_kernel):
               "exact_round_trips": sum(a == b for a, b in zip(out, bench)),
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     emit(result)
+    DECODE_RUNS.append((label, width, result["decode_steps"]))
     _profile(lambda: prod.smiles_to_2d_batch(tokens, tok, **kw), label, seconds)
     return result
 
@@ -966,6 +989,7 @@ def phase_points(model, tok):
           "launches_per_call": runs[-1][2],
           "exact_recoveries": sum(a == b for a, b in zip(out, smiles)),
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    DECODE_RUNS.append(("points", tok.n_seq, runs[-1][2]["decode_attention_quant"] // n_layer))
     _profile(lambda: prod.points_to_2d_batch(atoms, coords, tok, **kw), "points", seconds)
     _profile(lambda: prod.encode_points(atoms, coords), "encode_points",
              statistics.median(encode_s))
@@ -993,6 +1017,52 @@ def phase_packed(model, tok, flash_run):
           "encode_seconds": {"packed": run["encode_seconds"], "flash": flash_run["encode_seconds"]},
           "round_trip_seconds": {"packed": run["seconds"], "flash": flash_run["seconds"]}})
     return _counts()
+
+
+# (path, cache width, decode steps) of each production round trip: a step
+# at position p launches K1 once a layer, from p = 3 after the prefix
+# [CLIP][UNK][SMILES]
+DECODE_RUNS = []
+PREFIX_LEN = 3
+
+
+def phase_k1_positions(n_layer):
+    """K1's int8 form (bf16 query, float32 scales; B 1024, H 16, Dh 16) timed
+    at every position each production round trip decoded, and its time in
+    each call weighted by those launches, beside its bound and beside the
+    same launches priced at pos 95. Runs after the paths' windows: these
+    launches are not the paths'."""
+    from coati_tpu_torch.models.transformer import quantize_kv
+    from coati_tpu_torch.ops.kernels import decode_attention as k1
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    b, h, dh = 1024, 16, 16
+    q = torch.randn(b, h, dh, generator=gen, device="cuda").to(torch.bfloat16)
+    caches, times = {}, {}
+
+    def ms(width, pos):
+        if width not in caches:
+            kv = torch.randn(2, b, width, h, dh, generator=gen, device="cuda")
+            caches[width] = (*quantize_kv(kv[0]), *quantize_kv(kv[1]))
+        if (width, pos) not in times:
+            k8, ks, v8, vs = caches[width]
+            times[width, pos] = time_ms(lambda: k1.decode_attention_quant(q, k8, ks, v8, vs, pos))
+        return times[width, pos]
+
+    def bound(pos):
+        live = pos + 1
+        return bound_ms(2 * b * h * dh * 2 + live * b * h * (2 * dh + 2 * 4),
+                        4 * b * h * live * dh, torch.float32)[0]
+
+    for label, width, steps in DECODE_RUNS:
+        positions = range(PREFIX_LEN, PREFIX_LEN + steps)
+        total = n_layer * sum(ms(width, p) for p in positions)
+        emit({"phase": "k1_positions", "path": label, "cache_width": width,
+              "positions": [positions[0], positions[-1]], "launches": n_layer * steps,
+              "ms_by_position": {p: ms(width, p) for p in positions},
+              "k1_ms_per_call": total, "k1_ms_per_launch": total / (n_layer * steps),
+              "bound_ms_per_call": n_layer * sum(bound(p) for p in positions),
+              "priced_at_pos95_ms": n_layer * steps * ms(width, 95)})
 
 
 class _StampedDataset:
@@ -1214,10 +1284,13 @@ def phase_train_fp32_vs_plain():
 
 
 def _profile(fn, label, wall_s, top=12):
-    """Device time by kernel over one call of fn (torch.profiler), and the
-    card's idle share against the call's unprofiled time."""
+    """Device time by kernel over one call of fn (torch.profiler): the top
+    kernels and every kernel of the port's own; and the card's idle share
+    against the call's unprofiled time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from coati_tpu_torch.ops.kernels import build
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
@@ -1230,11 +1303,15 @@ def _profile(fn, label, wall_s, top=12):
             and not getattr(e, "is_user_annotation", False)
             and not e.key.startswith("Optimizer.")]
     busy_s = sum(t for _, t, _ in rows) / 1e6
-    top = sorted(rows, key=lambda r: -r[1])[:top]
+    rows = sorted(rows, key=lambda r: -r[1])
+    # the port's own kernels by name, whatever their rank (names from ptxas)
+    ours = {k.split("<")[0] for log in build.BUILD_LOG.values() for k in ptxas_usage(log)}
+    port = [r for r in rows if ours and re.search(r"\b(" + "|".join(ours) + r")\b", r[0])]
     emit({"phase": "profile", "shape": label, "device_busy_s": busy_s,
           "call_s": wall_s, "idle_share": 1 - busy_s / wall_s,
           "kernel_launches": sum(c for _, _, c in rows),
-          "top_kernels": [{"name": n[:90], "ms": t / 1e3, "calls": c} for n, t, c in top]})
+          "top_kernels": [{"name": n[:90], "ms": t / 1e3, "calls": c} for n, t, c in rows[:top]],
+          "port_kernels": [{"name": n[:90], "ms": t / 1e3, "calls": c} for n, t, c in port]})
 
 
 def main() -> int:
@@ -1265,6 +1342,8 @@ def main() -> int:
     lap("points")
     paths["packed"] = phase_packed(model, tok, flash_run)
     lap("packed")
+    phase_k1_positions(model.config.n_layer_xformer)
+    lap("k1_positions")
     del model
     paths["train"] = phase_train()
     lap("train")

@@ -4,7 +4,12 @@ Replaces the TPU kernel coati_tpu/ops/pallas/decode_attention.py
 (decode_attention_pallas and decode_attention_pallas_quant,
 _decode_pallas, _kernel). On an H100 it is bound by bytes: the cache
 positions [0, pos] it must read; positions past pos are never loaded.
-The design note is at the top of the CUDA source.
+The design note is at the top of the CUDA source: a thread holds 16
+bytes of one head's vectors (the whole head for an int8 cache at Dh 16)
+and takes (row, head, position) items, one 16-byte load of K and one of V
+each, its part of the dot in registers; a row's positions are spread over
+groups of threads whose states are merged in a fixed order, so the output
+repeats bit for bit.
 
 One source, templated over the cache type, serves both wrappers:
 `decode_attention` for a float32 or bfloat16 cache of the query's dtype,
@@ -16,8 +21,9 @@ scales, is an error, never a silent detour. Each wrapper counts its
 launches in `.launches`.
 
 The cache slice of one layer, `data[l, 0]` of the (L, 2, B, T, H, Dh)
-cache, is a contiguous (B, T, H, Dh) view and is read in place. `pos` is
-a host int passed by value, so a launch needs no device sync.
+cache, is a contiguous (B, T, H, Dh) view and is read in place; q and
+the cache slices must start on a 16-byte boundary. `pos` is a host int
+passed by value, so a launch needs no device sync.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ import torch
 from coati_tpu_torch.ops import attention as plain
 from coati_tpu_torch.ops.kernels import build
 
-HEAD_DIMS = (16, 32)  # a head's Dh lanes must sit inside one warp
+HEAD_DIMS = (16, 32)  # a head's vector is whole 16-byte loads, unrolled in registers
 DTYPES = (torch.float32, torch.bfloat16)
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
 
@@ -64,6 +70,19 @@ def _check_common(q1: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos) -> No
         raise ValueError("decode attention: q1 and the cache slices must be contiguous")
     if not isinstance(pos, int) or not 0 <= pos < t:
         raise ValueError(f"decode attention: pos must be a host int in [0, {t}), got {pos!r}")
+    check_aligned(q1, k, v)
+
+
+def check_aligned(*tensors: torch.Tensor) -> None:
+    """Raise on a query or cache slice that the kernel cannot read 16 bytes
+    at a time: a base address that is not a multiple of 16. (Every head's
+    vector, Dh >= 16 elements of at least a byte, then starts aligned.)"""
+    for name, x in zip(("q1", "k", "v"), tensors):
+        if x.data_ptr() % 16:
+            raise ValueError(
+                f"decode attention: {name} must start on a 16-byte boundary, got address "
+                f"{x.data_ptr()}"
+            )
 
 
 def _launch(q1, k, v, ks: Optional[torch.Tensor], vs: Optional[torch.Tensor], pos: int, scale_code: int):

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Variants of the port's attention kernels (K2, csrc/flash_attention.cu;
-K5f, csrc/packed_attention.cu; K5b, csrc/packed_attention_bwd.cu), timed
-side by side on one CUDA card.
+K5f, csrc/packed_attention.cu; K5b, csrc/packed_attention_bwd.cu; K1,
+csrc/decode_attention.cu), timed side by side on one CUDA card.
 
-    python3 scripts/torch_attention_variants.py [--out FILE] [--only k5b,...]
+    python3 scripts/torch_attention_variants.py [--out FILE] [--only k1,k5b,...]
                                                 [--csrc DIR] [--parent DIR]
 
 from the repository root, on a machine with one CUDA card and nvcc. Each
@@ -38,6 +38,21 @@ The variants:
       stage_only  only the staging of q, k, v and g: no phase 1 or 2
       gN          every head group N of the bwd_head_group rule's budget,
                   for `base` (sources that take a group)
+  K1  c16, c64    1 or 4 positions a chunk, 16 or 64 bytes of each
+                  thread's K (the source's 32 bytes take 2; two chunks are
+                  in flight)
+      wave2       twice as many groups a row as fit on the card at once
+      noexp       the exponentials replaced by their argument
+      nomath      loads and merge alone: no dot, no exponentials, no sums
+  K1 is timed at B 1024, T 250, H 16, Dh 16 at the positions the paths
+  decode (3, 15, 36) and at 95 and 249, in every form of the cache (int8
+  with float32 scales and a bf16 or float32 query, int8 with bf16 scales,
+  bf16, float32), and in float32 at the fp32 round trip's B 64; beside
+  two yardsticks: an empty kernel, and PyTorch's max over as many bytes
+  as K1 reads (`read_floor_ms`), timed the same way. `base` and that max
+  are also timed with the L2 flushed by a read (`base_clean_ms`,
+  `read_floor_clean_ms`): chip_smoke.time_ms flushes by a write, and the
+  dirty lines it leaves are written back while the kernel reads.
 Every line of output is one JSON object: first the card, then the
 registers and spills of each variant, then one line a shape.
 """
@@ -59,8 +74,15 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
-from coati_tpu_torch.ops.attention import causal_attention, causal_attention_backward  # noqa: E402
+from coati_tpu_torch.models.transformer import quantize_kv  # noqa: E402
+from coati_tpu_torch.ops.attention import (  # noqa: E402
+    causal_attention,
+    causal_attention_backward,
+    decode_attention,
+    decode_attention_quant,
+)
 from coati_tpu_torch.ops.kernels import build  # noqa: E402
+from coati_tpu_torch.ops.kernels import decode_attention as kd  # noqa: E402
 from coati_tpu_torch.ops.kernels import flash_attention as kf  # noqa: E402
 from coati_tpu_torch.ops.kernels import packed_attention as kp  # noqa: E402
 
@@ -127,7 +149,50 @@ VARIANTS = [
           "  for (int j = warp; j < seq && scale < 0.f; j += kWarps) {")],
     ]),
 ]
-KERNELS = {"k2": "flash_attention", "k5f": "packed_attention", "k5b": "packed_attention_bwd"}
+
+
+def _k1_block(start="    float sc[kSize];\n", end="    m = m_new;\n") -> str:
+    """The text of K1's chunk arithmetic (scores, rescale, sums) in the
+    package's source, or a text no source holds."""
+    text = (build.CSRC_DIR / "decode_attention.cu").read_text()
+    i, j = text.find(start), text.find(end)
+    return text[i:j + len(end)] if 0 <= i < j else "\0 absent"
+
+
+# K1's chunk arithmetic replaced by a fold of the loaded words into one
+# accumulator, so that the loads stay and the merge still runs
+K1_NOMATH = """#pragma unroll
+    for (int j = 0; j < kSize; ++j)
+      acc[j % E] += __uint_as_float(((k[j].x ^ k[j].y ^ k[j].z ^ k[j].w ^ v[j].x ^ v[j].y ^
+                                      v[j].z ^ v[j].w) & 0x007FFFFFu) | 0x3F800000u) +
+                    (QUANT ? ks[j] + vs[j] : 0.f);
+    l = 1.f;
+    m = 0.f;
+"""
+K1_CHUNK = "constexpr int kChunkBytes = 32;"
+K1_FIT = "static_cast<long long>(batch) * 2 * g * span <= resident)"
+K1_EXP = "__device__ __forceinline__ float exp2_fast(float x) {\n  float y;\n"
+VARIANTS += [
+    ("decode_attention", "base", [[]]),
+    ("decode_attention", "c16", [[("decode_attention.cu", K1_CHUNK,
+                                   K1_CHUNK.replace("32", "16"))]]),
+    ("decode_attention", "c64", [[("decode_attention.cu", K1_CHUNK,
+                                   K1_CHUNK.replace("32", "64"))]]),
+    ("decode_attention", "wave2", [[("decode_attention.cu", K1_FIT,
+                                     K1_FIT.replace("<= resident", "<= 2 * resident"))]]),
+    ("decode_attention", "noexp", [[("decode_attention.cu", '#include "mma.cuh"',
+                                     '#include "mma.cuh"'),
+                                    ("mma.cuh", K1_EXP,
+                                     K1_EXP + "  if (x > -1e29f) return x;\n")]]),
+    ("decode_attention", "nomath", [[("decode_attention.cu", _k1_block(), K1_NOMATH)]]),
+]
+KERNELS = {"k2": "flash_attention", "k5f": "packed_attention", "k5b": "packed_attention_bwd",
+           "k1": "decode_attention"}
+K1_POSITIONS = (3, 15, 36, 95, 249)
+# (batch, query dtype, cache: a dtype or "int8/<scale dtype>")
+K1_FORMS = ((1024, torch.bfloat16, "int8/float32"), (1024, torch.float32, "int8/float32"),
+            (1024, torch.float32, "int8/bfloat16"), (1024, torch.bfloat16, torch.bfloat16),
+            (1024, torch.float32, torch.float32), (64, torch.float32, torch.float32))
 K2_SHAPES = ((1024, 250), (1024, 128), (1024, 96), (1024, 3))
 K5F_SHAPES = ((1024, 96), (1024, 128), (160, 32), (160, 48), (160, 80), (1024, 3))
 K5B_SHAPES = ((160, 80), (160, 48), (160, 32), (1024, 96), (1024, 128))
@@ -269,6 +334,66 @@ def measure(libs, emit) -> None:
                 key = label if grp is None else f"{label}_g{grp}"
                 row[key] = _timed(lambda: fn(*args), outs, refs, tols)
         emit(row)
+
+    k1 = entry("decode_attention", "decode_attention", kd._ARGTYPES)
+    if k1:
+        measure_k1(k1, emit, stream, gen)
+
+
+_READ_FLUSH = None
+
+
+def time_ms_clean(fn) -> float:
+    """chip_smoke.time_ms with the L2 flushed by a read of 256 MB instead of
+    a write: the lines the call evicts are clean, so none is written back."""
+    global _READ_FLUSH
+    if _READ_FLUSH is None:
+        _READ_FLUSH = torch.ones(64 * 2**20, dtype=torch.int32, device="cuda")
+    return cs.time_ms(fn, flush=_READ_FLUSH.amax)
+
+
+def measure_k1(k1, emit, stream, gen) -> None:
+    """Every K1 variant in every form at every position of K1_POSITIONS
+    (T 250, H 16, Dh 16), against the plain version within chip_smoke.py's
+    tolerance."""
+    t, scale = 250, 1.0 / math.sqrt(DH)
+    # yardsticks: a kernel that does nothing, and PyTorch's max over a
+    # buffer of the bytes K1 reads (each case's live cache, scales and q)
+    emit({"k1_floor": {"empty_kernel_ms": cs.time_ms(lambda: torch.cuda._sleep(1))}})
+    words = torch.zeros(600 * 2**20 // 4, dtype=torch.int32, device="cuda")
+    for b, q_dtype, kv in K1_FORMS:
+        q = torch.randn(b, H, DH, generator=gen, device="cuda").to(q_dtype)
+        k, v = (torch.randn(b, t, H, DH, generator=gen, device="cuda") for _ in range(2))
+        if isinstance(kv, str):
+            scale_dtype = {"int8/float32": torch.float32, "int8/bfloat16": torch.bfloat16}[kv]
+            (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+            ks, vs = ks.to(scale_dtype), vs.to(scale_dtype)
+            codes = (build.DTYPE_CODES[torch.int8], build.DTYPE_CODES[scale_dtype])
+            plain = lambda pos: decode_attention_quant(q, k, ks, v, vs, pos)  # noqa: E731
+        else:
+            k, v, ks, vs = k.to(kv), v.to(kv), None, None
+            codes = (build.DTYPE_CODES[kv], 0)
+            plain = lambda pos: decode_attention(q, k, v, pos)  # noqa: E731
+        out = torch.empty_like(q)
+        for pos in K1_POSITIONS:
+            ref = plain(pos).float()
+            tol = cs.tolerance(ref, q_dtype, 1e-4 if isinstance(kv, str) else 1e-5)
+            live = (pos + 1) * b * H * (2 * DH * k.element_size()
+                                        + (2 * ks.element_size() if ks is not None else 0))
+            n_read = live + b * H * DH * q.element_size()
+            row = {"kernel": "decode_attention", "shape": [b, t, H, DH], "pos": pos,
+                   "q_dtype": str(q_dtype)[6:], "kv": kv if isinstance(kv, str) else str(kv)[6:],
+                   "read_floor_ms": cs.time_ms(lambda: words[:n_read // 4].amax()),
+                   "read_floor_clean_ms": time_ms_clean(lambda: words[:n_read // 4].amax())}
+            args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    ks.data_ptr() if ks is not None else None,
+                    vs.data_ptr() if vs is not None else None, out.data_ptr(), b, t, H, DH,
+                    pos, build.DTYPE_CODES[q_dtype], *codes, scale, stream)
+            for label, (fn, _) in k1.items():
+                row[label] = _timed(lambda: fn(*args), [out], [ref], [tol])
+                if label == "base":
+                    row["base_clean_ms"] = time_ms_clean(lambda: fn(*args))
+            emit(row)
 
 
 def run(description: str, variants, kernels, measure_fn) -> int:

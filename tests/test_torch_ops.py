@@ -498,6 +498,146 @@ def test_decode_attention_quant_matches_jax_and_pallas(pos, scale_dtype):
     )
 
 
+def _k1_groups(batch, span, pos, resident, block=256):
+    """K1's split of a row (csrc/decode_attention.cu, row_groups) into G
+    groups of `span` threads (one a 16-byte segment of each head): the
+    least G that makes whole warps, doubled while a row stays within a
+    block, every group has a position and all rows fit at once."""
+    g = 32 // span if span < 32 and span & (span - 1) == 0 else 1
+    while 2 * g * span <= block and 2 * g <= pos + 1 and batch * 2 * g * span <= resident:
+        g *= 2
+    return g
+
+
+def _emulate_k1(q, k, v, ks, vs, pos, groups, chunk=2):
+    """The arithmetic of K1 (csrc/decode_attention.cu), in PyTorch on the
+    CPU: thread (g, h, part) of a row holds 16 bytes of head h's vectors
+    (16 int8, 8 bf16 or 4 float32 elements) and takes positions g, g + G,
+    ... <= pos in chunks of `chunk`; the segments' dots are summed over the
+    item's lanes by an xor tree; scores in base 2 (q pre-scaled by
+    log2(e)/sqrt(Dh), times the k-scale), one rescale of (m, l, acc) a
+    chunk; then xor merges of the groups that share a warp (when a group is
+    a power of two below 32 lanes) and the row's states summed in warp
+    order; output in q's dtype."""
+    b, t, h, dh = k.shape
+    e = 16 // k.element_size()  # elements a thread holds of a head
+    split, span = dh // e, h * dh // e
+    neg = -1e30
+    c = torch.tensor(1 / math.sqrt(dh), dtype=torch.float32) * torch.tensor(math.log2(math.e))
+    qf, kf, vf = q.float() * c, k.float(), v.float()
+    m = torch.full((b, groups, h), neg)
+    l, acc = torch.zeros(b, groups, h), torch.zeros(b, groups, h, dh)
+    g_idx = torch.arange(groups)
+    for i0 in range(0, -(-(pos + 1) // groups), chunk):
+        s = g_idx[:, None] + (i0 + torch.arange(chunk))[None, :] * groups  # (G, C)
+        ok, s = s <= pos, s.clamp(max=t - 1)
+        part = (qf[:, None, None] * kf[:, s]).unflatten(-1, (split, e)).sum(-1)  # (B, G, C, H, S)
+        off = split // 2
+        while off:  # lane i adds lane i ^ off
+            part = part + part[..., torch.arange(split) ^ off]
+            off //= 2
+        dot = part[..., 0]  # (B, G, C, H)
+        if ks is not None:
+            dot = dot * ks.float()[:, s]
+        sc = torch.where(ok[None, :, :, None], dot, neg)
+        m_new = torch.maximum(m, sc.amax(2))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(sc - m_new[:, :, None])
+        w = p * vs.float()[:, s] if vs is not None else p
+        busy = ok.any(1)[None, :, None]  # a group whose positions ran out stops
+        m = torch.where(busy, m_new, m)
+        l = torch.where(busy, l * alpha + p.sum(2), l)
+        summed = acc * alpha[..., None] + (w[..., None] * vf[:, s]).sum(2)
+        acc = torch.where(busy[..., None], summed, acc)
+    lanes = 1
+    if span < 32 and span & (span - 1) == 0:
+        off = 16
+        while off >= span:
+            partner = g_idx ^ (off // span)
+            m_n = torch.maximum(m, m[:, partner])
+            cc, co = torch.exp2(m - m_n), torch.exp2(m[:, partner] - m_n)
+            l = l * cc + l[:, partner] * co
+            acc = acc * cc[..., None] + acc[:, partner] * co[..., None]
+            m, off = m_n, off // 2
+        lanes = 32 // span
+    m, l, acc = m[:, ::lanes], l[:, ::lanes], acc[:, ::lanes]  # the row's states, warp order
+    cc = torch.exp2(m - m.amax(1, keepdim=True))
+    l_all, a_all = torch.zeros(b, h), torch.zeros(b, h, dh)
+    for kk in range(m.shape[1]):
+        l_all = l_all + l[:, kk] * cc[:, kk]
+        a_all = a_all + acc[:, kk] * cc[:, kk, :, None]
+    return (a_all / l_all[..., None]).to(q.dtype)
+
+
+# (query dtype, cache: a dtype or "int8/<scale dtype>")
+K1_FORMS = [("float32", "float32"), ("bfloat16", "bfloat16"), ("float32", "int8/float32"),
+            ("float32", "int8/bfloat16"), ("bfloat16", "int8/float32")]
+
+
+@pytest.mark.parametrize("dh", [16, 32])
+@pytest.mark.parametrize("pos", [0, 21, T_CACHE - 1])
+@pytest.mark.parametrize("form", K1_FORMS, ids=["-".join(f) for f in K1_FORMS])
+def test_k1_emulation_matches_plain_and_pallas(form, pos, dh):
+    """K1's split of a row's positions over groups of threads and its
+    fixed-order merge, emulated on the CPU, against the plain version that
+    chip_smoke.py holds the kernel to and against the TPU kernel in
+    interpret mode: with the groups K1 takes at this batch of 3 rows and at
+    the production batch of 1024 on an H100 (two blocks of 256 an SM),
+    and chunks of 2 positions. pos 21 leaves the last chunk and the last
+    groups' positions partial. float32 queries within the shared
+    tolerance; bf16 outputs within half of the chip's tolerance (2 bf16
+    ulps of the output scale) of the plain version, and within one ulp of
+    the TPU kernel, which also rounds only its output."""
+    q_name, kv = form
+    q_dtype = getattr(torch, q_name)
+    b, h = 3, 16 if dh == 16 else 8
+    q = _t(_normal(40, b, h, dh)).to(q_dtype)
+    k, v = _t(_normal(41, b, T_CACHE, h, dh)), _t(_normal(42, b, T_CACHE, h, dh))
+    if kv.startswith("int8"):
+        scale_dtype = getattr(torch, kv[5:])
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        ks, vs = ks.to(scale_dtype), vs.to(scale_dtype)
+        ref = tatt.decode_attention_quant(q, k, ks, v, vs, pos)
+        jargs = [jnp.asarray(x.float().numpy()) for x in (k, ks, v, vs)]
+        jargs[0], jargs[2] = jargs[0].astype(jnp.int8), jargs[2].astype(jnp.int8)
+        jargs[1], jargs[3] = (x.astype(jnp.dtype(kv[5:])) for x in (jargs[1], jargs[3]))
+        jq = jnp.asarray(q.float().numpy()).astype(jnp.dtype(q_name))
+        tpu = decode_attention_pallas_quant(jq, jargs[0], jargs[1], jargs[2], jargs[3],
+                                            jnp.asarray(pos), interpret=True)
+    else:
+        k, v, ks, vs = k.to(q_dtype), v.to(q_dtype), None, None
+        ref = tatt.decode_attention(q, k, v, pos)
+        jq, jk, jv = (jnp.asarray(x.float().numpy()).astype(jnp.dtype(q_name)) for x in (q, k, v))
+        tpu = decode_attention_pallas(jq, jk, jv, jnp.asarray(pos), interpret=True)
+    tpu = np.asarray(tpu.astype(jnp.float32))
+    span = h * dh * k.element_size() // 16
+    for batch in (b, 1024):
+        groups = _k1_groups(batch, span, pos, resident=132 * 2 * 256)
+        assert (groups * span) % 32 == 0 and groups * span <= 256
+        mine = _emulate_k1(q, k, v, ks, vs, pos, groups)
+        assert mine.dtype == q_dtype and mine.shape == q.shape
+        if q_dtype == torch.float32:
+            _close(mine, ref)
+            _close(mine, tpu)
+        else:
+            scale = float(ref.float().abs().max())
+            assert float((mine.float() - ref.float()).abs().max()) <= 0.5 * 2 * 2.0**-7 * scale
+            _close(mine, tpu, atol=2.0**-7 * scale, rtol=0)
+
+
+def test_decode_wrappers_refuse_unaligned_queries_and_caches():
+    """The kernel reads q and the cache 16 bytes at a time: a base address
+    off a 16-byte boundary is refused, not read another way."""
+    q = torch.zeros(2 * 4 * 16 + 1)[1:].view(2, 4, 16)
+    k = torch.zeros(2, 8, 4, 16)
+    with pytest.raises(ValueError, match="q1 must start on a 16-byte boundary"):
+        kdecode.check_aligned(q, k, k)
+    k8 = torch.zeros(2 * 8 * 4 * 16 + 8, dtype=torch.int8)[8:].view(2, 8, 4, 16)
+    with pytest.raises(ValueError, match="k must start on a 16-byte boundary"):
+        kdecode.check_aligned(q.clone(), k8, k8)
+    kdecode.check_aligned(q.clone(), k, k)
+
+
 def test_decode_wrappers_keep_cpu_counters_at_zero():
     q, k = _t(_normal(36, 2, 2, 16)), _t(_normal(37, 2, 8, 2, 16))
     before = (kdecode.decode_attention.launches, kdecode.decode_attention_quant.launches)
