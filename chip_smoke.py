@@ -6,7 +6,9 @@
 With CHIP_SMOKE_LOG=<file> in the environment, every JSON line it prints is
 also appended to that file.
 
-Phases, in order; any failure ends the run with a non-zero exit:
+Phases, in order; any failure ends the run with a non-zero exit. The
+first line names the host CPU (vendor, model, cores), on which every host
+number is taken.
 
  1. build: nvcc builds every kernel under coati_tpu_torch/csrc for sm_90a,
     one process per source, all at once; ptxas's registers and spills of
@@ -26,7 +28,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
     exponentials. Then routing:
     forward + backward of the trainer's attention through K5f + K5b and
     through K2 + its replayed plain backward, side by side.
- 3. paths: the trained grande document docs/eval_model_r5.pkl on the card,
+ 3. chem (host only): the port's chemistry core. The native C libraries
+    (coati_tpu_torch/native/*.c, built with cc) must build and load; the
+    canonicalizer is timed over all 120,000 lines of
+    corpora/chembl_synth_v1.smi.gz with its cache cleared (seconds,
+    molecules/s, and how many the native and the Python path answered), and
+    again warm; on a seeded sample of 2,000 lines its native path must equal
+    its Python path byte for byte, every permuted writing must canonicalize
+    to the line's canonical form, and the native matcher must split the
+    tokenizer's text as the Python scan does.
+ 4. paths: the trained grande document docs/eval_model_r5.pkl on the card,
     through the user entry points. Each path starts with every kernel's
     launch count set to 0 and ends by reading the counts; runs through the
     plain versions, made for comparison, lie outside those windows.
@@ -41,6 +52,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
     version; the cosine of each point embedding with the same molecule's
     SMILES embedding; points_to_2d_batch in the production setting, timed
     and traced the same way.
+    points_from_smiles: the fixture's 1,024 SMILES embedded by the port's
+    own conformer embedder (chem/conformers.py, host seconds); the atoms
+    must equal the fixture's in every row and, in every row, the pairwise
+    distances the fixture's (written by coati_tpu) within 1e-4 Angstrom
+    (the worst row is printed); then points_to_2d_batch on those coordinates in the
+    production setting: every row decodes, K3 launches once per EGNN layer
+    and the int8 K1 every decode step.
     packed: the total_len 96 production round trip again under
     prefill_kernel="packed", which sends every full-sequence attention to
     the short-sequence kernel.
@@ -49,21 +67,27 @@ Phases, in order; any failure ends the run with a non-zero exit:
     by those launches, beside its bound and the same launches priced at
     pos 95. Every traced call lists the device time of each of the port's
     kernels by name.
-    train: train_autoencoder with the grande recipe (16 x 256 transformer,
-    5 x 256 EGNN, bf16 over float32 masters, batch 160, n_seq 80, remat of
-    the transformer blocks) on the fixture's molecules, from a seeded fresh
-    model: 3 warm-up and 20 timed steps, then a few more steps split into
-    forward, backward and optimizer by CUDA events and traced by
-    torch.profiler. p_randsmiles is 0 and canonicalize False, because the
-    port has no chemistry modules yet. Every loss must be finite, the
-    autoregressive loss must fall, and the backward kernels must launch.
- 4. train_fp32_vs_plain: one float32 training step at full width (4
+    train: train_autoencoder with the grande recipe as it is written (16 x
+    256 transformer, 5 x 256 EGNN, bf16 over float32 masters, batch 160,
+    n_seq 80, remat of the transformer blocks, every row canonicalized, 30%
+    of the targets permuted) on the fixture's molecules, from a seeded fresh
+    model and a seeded global random module (permute_smiles draws from
+    it), so a run repeats its batches: 3 warm-up and 20 timed steps, then
+    a few more steps split into forward, backward and optimizer by CUDA
+    events and traced by torch.profiler. Every loss must be finite, the autoregressive loss must
+    fall, and the backward kernels must launch. The host pipeline is
+    reported beside the step: the transform's seconds a batch inside the
+    run, and replayed after it on the same raw batches, drawn again from
+    the seeded pipe so that no copy is taken inside the run, cold (caches
+    cleared) and warm, with the share of permuted targets and the
+    canonicalizations each path answered.
+ 5. train_fp32_vs_plain: one float32 training step at full width (4
     transformer layers, 2 EGNN layers, batch 64) from the same weights,
     batch and clip-token choice, through the kernels and through their plain
     versions: the loss and every parameter's gradient must agree. Once more
     at T 200, batch 32, where K2 carries the trunk and its backward replays
     the plain attention.
- 5. report: the card's name and power limit, one `kernels` JSON line, and
+ 6. report: the card's name and power limit, one `kernels` JSON line, and
     as the last line {"ok": true, "device": {...}}.
 
 Every number printed is measured in this run, on this card, except the
@@ -77,8 +101,10 @@ from __future__ import annotations
 
 import contextlib
 import gzip
+import itertools
 import json
 import os
+import random
 import re
 import statistics
 import subprocess
@@ -815,6 +841,88 @@ def _round_trip(model, tok, tokens, **kw):
     return smiles, h, seconds, launches
 
 
+def host_cpu() -> dict:
+    """The host CPU's vendor and model (/proc/cpuinfo) and core count: the
+    host numbers of phases chem, points_from_smiles and host_pipeline are
+    taken on it."""
+    info = {}
+    with contextlib.suppress(OSError):
+        for line in Path("/proc/cpuinfo").read_text().splitlines():
+            key, _, value = line.partition(":")
+            info.setdefault(key.strip(), value.strip())
+    return {"phase": "host", "cpu_vendor": info.get("vendor_id", "not reported"),
+            "cpu_model": info.get("model name", "not reported"), "cores": os.cpu_count()}
+
+
+def phase_chem():
+    """The chemistry core on the host: the native libraries must build and
+    load (a GPU host has a C compiler, and a silent fall back to Python
+    would hide the path), the canonicalizer over the whole corpus, and its
+    native path, permutations and the native matcher on a seeded sample."""
+    from coati_tpu_torch import native
+    from coati_tpu_torch.chem import graph_canon
+    from coati_tpu_torch.chem.selfies_lite import permute_smiles
+    from coati_tpu_torch.tokenizers import get_vocab
+    from coati_tpu_torch.tokenizers.matcher import VocabMatcher
+
+    start = time.perf_counter()
+    canon_lib, matcher_lib = native.load_fast_canon(), native.load_fast_matcher()
+    build_s = time.perf_counter() - start
+    check(canon_lib is not None and matcher_lib is not None,
+          f"chem: the native libraries did not build or load: {native.BUILD_ERRORS}")
+    corpus = gzip.open(CORPUS, "rt").read().split()
+    distinct = len(set(corpus))
+
+    graph_canon._canonical_cached.cache_clear()
+    before = dict(native.CANON_PATHS)
+    start = time.perf_counter()
+    canonical = [graph_canon.canonical_smiles(s) for s in corpus]
+    cold_s = time.perf_counter() - start
+    paths = {k: native.CANON_PATHS[k] - before[k] for k in before}
+    check(sum(paths.values()) == distinct, f"chem: {paths} canonicalizations of {distinct} lines")
+    start = time.perf_counter()
+    check([graph_canon.canonical_smiles(s) for s in corpus] == canonical, "chem: a warm pass differs")
+    warm_s = time.perf_counter() - start
+
+    sample = random.Random(0).sample(corpus, 2000)
+    start = time.perf_counter()
+    by_python = [graph_canon._canonical_python(s, True, 512) for s in sample]
+    python_s = time.perf_counter() - start
+    start = time.perf_counter()
+    by_native = [graph_canon._try_native(s, True, 512) for s in sample]
+    native_s = time.perf_counter() - start
+    differ = sum(a != b for a, b in zip(by_native, by_python))
+    check(differ == 0, f"chem: the native path differs from the Python path on {differ} of 2000")
+    rng = random.Random(1)
+    permuted = [permute_smiles(s, rng) for s in sample]
+    moved = sum(p != s for p, s in zip(permuted, sample))
+    wrong = sum(graph_canon.canonical_smiles(p) != graph_canon.canonical_smiles(s)
+                for p, s in zip(permuted, sample))
+    check(wrong == 0, f"chem: {wrong} of 2000 permuted writings canonicalize to another string")
+
+    vocab = get_vocab("mar")
+    tokens = list(vocab["special_tokens"]) + list(vocab["smiles_tokens"])
+    fast = VocabMatcher(tokens)
+    check(fast.uses_native, "chem: the native matcher is not in use")
+    texts = ["[SMILES]" + s + "[STOP]" for s in sample + permuted]
+    start = time.perf_counter()
+    splits = [fast.split(t) for t in texts]
+    fast_s = time.perf_counter() - start
+    start = time.perf_counter()
+    differ = sum(a != fast._split_python(t) for a, t in zip(splits, texts))
+    scan_s = time.perf_counter() - start
+    check(differ == 0, f"chem: the native matcher splits {differ} of {len(texts)} texts otherwise")
+    emit({"phase": "chem", "native_build_and_load_s": build_s,
+          "corpus_lines": len(corpus), "corpus_distinct": distinct,
+          "canonicalize_cold_s": cold_s, "canonicalize_cold_mol_per_s": len(corpus) / cold_s,
+          "canonicalize_warm_s": warm_s, "canonicalize_warm_mol_per_s": len(corpus) / warm_s,
+          "answered_by": paths, "fixed_points": sum(a == b for a, b in zip(canonical, corpus)),
+          "sample": len(sample), "native_equals_python": True,
+          "sample_native_s": native_s, "sample_python_s": python_s,
+          "permuted_writings_moved": moved, "permuted_canonicalize_back": True,
+          "matcher_texts": len(texts), "matcher_native_s": fast_s, "matcher_python_s": scan_s})
+
+
 def load_model():
     from coati_tpu_torch.models.io import load_e3gnn_smiles_clip_e2e
 
@@ -996,6 +1104,71 @@ def phase_points(model, tok):
     return _counts()
 
 
+def phase_points_from_smiles(model, tok):
+    """SMILES -> the port's own conformers -> points_to_2d_batch: the
+    fixture's 1,024 SMILES embedded on the host by chem/conformers.py, held
+    against the fixture coati_tpu wrote, then decoded in the production
+    setting. Returns the launch counts of the path."""
+    from coati_tpu_torch.chem.conformers import embed_smiles_to_atoms_coords
+    from coati_tpu_torch.data import load_points_fixture
+    from coati_tpu_torch.models.api import COATI
+
+    cfg = model.config
+    n_egnn, n_layer = cfg.n_layer_e3gnn, cfg.n_layer_xformer
+    smiles, f_atoms, f_coords = load_points_fixture()
+    start = time.perf_counter()
+    embedded = [embed_smiles_to_atoms_coords(s) for s in smiles]
+    embed_s = time.perf_counter() - start
+    atoms, coords = np.zeros_like(f_atoms), np.zeros_like(f_coords)
+    same_atoms = close = 0
+    worst_dist = worst_xyz = 0.0
+    worst_row = -1
+    for i, (a, c) in enumerate(embedded):
+        n = len(a)
+        check(n <= atoms.shape[1] and np.isfinite(c).all(), f"points_from_smiles: row {i}")
+        atoms[i, :n], coords[i, :n] = a, c
+        same_atoms += bool(np.array_equal(atoms[i], f_atoms[i]))
+        mine = np.linalg.norm(c[:, None] - c[None], axis=-1)
+        ref = f_coords[i, :n].astype(np.float64)
+        err = float(np.abs(mine - np.linalg.norm(ref[:, None] - ref[None], axis=-1)).max())
+        close += err <= 1e-3
+        if err > worst_dist:
+            worst_dist, worst_row = err, i
+        worst_xyz = max(worst_xyz, float(np.abs(c - ref).max()))
+    rows = len(smiles)
+    emit({"phase": "points_from_smiles_embed", "rows": rows,
+          "embed_seconds": embed_s, "mol_per_s": rows / embed_s,
+          "rows_with_the_fixture_s_atoms": same_atoms,
+          "rows_with_distances_within_1e-3": close,
+          "max_distance_diff_angstrom": worst_dist, "max_distance_diff_row": worst_row,
+          "max_coordinate_diff_angstrom": worst_xyz})
+    check(same_atoms == rows, f"points_from_smiles: atoms differ from the fixture's in "
+                              f"{rows - same_atoms} rows")
+    check(worst_dist <= 1e-4, f"points_from_smiles: distances differ from the fixture's by "
+                              f"{worst_dist} A in row {worst_row} (tolerance 1e-4)")
+
+    prod = COATI(model.params, cfg.replace(dtype="bfloat16"), seed=0)
+    kw = dict(k=100, inv_temp=2.0)
+    _zero_counts()  # the path starts here
+    runs = [_timed(lambda: prod.points_to_2d_batch(atoms, coords, tok, **kw))
+            for _ in range(2)]  # the first is warm-up
+    counts = _counts()  # and ends here
+    for out, _, run_launches in runs:
+        check(len(out) == rows and all(isinstance(s, str) for s in out),
+              "points_from_smiles: rows not decoded")
+        check(run_launches["egnn_messages"] == n_egnn, f"points_from_smiles: K3 {run_launches}")
+        steps, rem = divmod(run_launches["decode_attention_quant"], n_layer)
+        check(steps > 0 and rem == 0, f"points_from_smiles: int8 K1 {run_launches}")
+    out, seconds, launches = runs[-1]
+    emit({"phase": "points_from_smiles", "batch": rows, "dtype": "bfloat16",
+          "kv": "int8/float32", "k": 100, "inv_temp": 2.0, "seconds": seconds,
+          "seconds_all": [r[1] for r in runs], "mol_per_s": rows / seconds,
+          "decode_steps": launches["decode_attention_quant"] // n_layer,
+          "launches_per_call": launches,
+          "exact_recoveries": sum(a == b for a, b in zip(out, smiles))})
+    return counts
+
+
 def phase_packed(model, tok, flash_run):
     """The total_len 96 production round trip again under
     prefill_kernel="packed": K5f in place of K2. Returns the launch counts."""
@@ -1067,21 +1240,97 @@ def phase_k1_positions(n_layer):
 
 class _StampedDataset:
     """A training dataset that notes the host clock each time the trainer
-    takes a batch, and keeps the transformed batches. With the trainer's
-    deferred metric reads, the time between two takes is one whole step in
-    steady state: the wait for the step before, this step's launches, and
-    the next batch's host transform."""
+    takes a batch, and keeps the transformed batches and the seconds the
+    trainer's transform took on each. With the trainer's deferred metric
+    reads, the time between two takes is one whole step in steady state:
+    the wait for the step before, this step's launches, and the next
+    batch's host transform."""
 
     def __init__(self, dataset):
         self.dataset = dataset
         self.summary = dataset.summary
-        self.stamps, self.batches = [], []
+        self.stamps, self.batches, self.xform_s = [], [], []
+        self.pipe_kw = {}
 
-    def get_data_pipe(self, **kw):
-        for batch in self.dataset.get_data_pipe(**kw):
+    def get_data_pipe(self, xform_routine=lambda b: b, **kw):
+        self.pipe_kw = kw
+
+        def timed(batch):
+            start = time.perf_counter()
+            out = xform_routine(batch)
+            self.xform_s.append(time.perf_counter() - start)
+            return out
+
+        for batch in self.dataset.get_data_pipe(xform_routine=timed, **kw):
             self.stamps.append(time.perf_counter())
             self.batches.append(batch)
             yield batch
+
+    def raw_batches(self, n):
+        """The first n raw batches of the last pipe again, untransformed:
+        the pipe is seeded, so they are the ones the trainer took."""
+        return list(itertools.islice(self.dataset.get_data_pipe(**self.pipe_kw), n))
+
+
+def _host_pipeline(config, data, steps, step_s, canon_in_run):
+    """The trainer's transform replayed on the raw batches of the counted
+    run, after it: cold (the canonical-SMILES and conformer caches cleared
+    before each batch) and warm, beside the step; the share of targets that
+    were permuted; the canonicalizations each path answered."""
+    import statistics as st
+
+    from coati_tpu_torch import native
+    from coati_tpu_torch.chem import graph_canon
+    from coati_tpu_torch.chem.rdkit_support import canonicalize_or_self
+    from coati_tpu_torch.data import xform
+    from coati_tpu_torch.tokenizers import get_vocab
+    from coati_tpu_torch.tokenizers.trie_tokenizer import TrieTokenizer
+
+    tok = TrieTokenizer(n_seq=config.n_seq, **get_vocab(config.tokenizer_vocab))
+
+    def replay(raw):
+        batch = {k: v.copy() if isinstance(v, np.ndarray) else v for k, v in raw.items()}
+        start = time.perf_counter()
+        xform.clip_ar_xform(batch, tokenizer=tok, p_dataset=config.p_dataset,
+                            p_formula=config.p_formula, p_fim=config.p_fim,
+                            p_graph=config.p_graph, p_clip=config.p_clip,
+                            p_clip_cut=config.p_clip_cut, p_randsmiles=config.p_randsmiles)
+        return time.perf_counter() - start
+
+    raws = data.raw_batches(steps)
+    check(all(list(r["smiles"]) == list(b["smiles"]) for r, b in zip(raws, data.batches)),
+          "host_pipeline: the replayed raw batches are not the run's")
+    before = dict(native.CANON_PATHS)
+    cold = []
+    for raw in raws:
+        graph_canon._canonical_cached.cache_clear()
+        xform._embed_conformer_cached.cache_clear()
+        cold.append(replay(raw))
+    canon_cold = {k: native.CANON_PATHS[k] - before[k] for k in before}
+    warm = [replay(raw) for raw in raws]
+    rows = permuted = 0
+    for batch in data.batches[:steps]:
+        for smiles, target in zip(batch["smiles"], batch["raw_tokens"]):
+            plain = tok.tokenize_text("[SMILES]" + canonicalize_or_self(str(smiles)) + "[STOP]",
+                                      pad=False)
+            rows += 1
+            permuted += list(target[target > 0]) != plain
+    in_run = st.median(data.xform_s[:steps])
+    out = {"phase": "host_pipeline", "batch": config.batch_size,
+           "batches": len(raws), "p_randsmiles": config.p_randsmiles,
+           "permuted_target_share": permuted / rows,
+           "xform_in_run_s": in_run, "xform_in_run_s_all": data.xform_s[:steps],
+           "xform_cold_s": st.median(cold), "xform_cold_s_all": cold,
+           "xform_warm_s": st.median(warm), "xform_warm_s_all": warm,
+           "step_seconds": step_s, "in_run_share_of_step": in_run / step_s,
+           "cold_share_of_step": st.median(cold) / step_s,
+           "warm_share_of_step": st.median(warm) / step_s,
+           "canonicalized_in_run_by": canon_in_run, "canonicalized_cold_replay_by": canon_cold}
+    emit(out)
+    check(canon_in_run["python"] == 0 and canon_in_run["native"] > 0,
+          f"train: canonicalizations in the run {canon_in_run}")
+    check(0 < permuted < rows, f"train: {permuted} of {rows} targets permuted")
+    return out
 
 
 def _train_step(config, model):
@@ -1106,25 +1355,31 @@ def _train_step(config, model):
 def phase_train():
     """The training path: train_autoencoder with the grande recipe on the
     card. Returns the launch counts of the path."""
+    from coati_tpu_torch import native
+    from coati_tpu_torch.chem import graph_canon
     from coati_tpu_torch.data import fixture_dataset
     from coati_tpu_torch.training import train
     from coati_tpu_torch.training.config import grande_config
 
     warm, timed = 3, 20
     steps = warm + timed
-    # the recipe in bf16 as it is, but for the permuted SMILES (p_randsmiles
-    # 0.3), which need the chemistry modules the port does not have yet
-    config = grande_config(dtype="bfloat16", n_epochs=1, p_randsmiles=0.0)
+    # the recipe in bf16 as it is written: every row canonicalized, 30% of
+    # the targets permuted
+    config = grande_config(dtype="bfloat16", n_epochs=1)
+    check(config.p_randsmiles == 0.3, f"train: p_randsmiles {config.p_randsmiles}")
     # one batch more than is trained on: the loop takes it before it stops
     data = _StampedDataset(fixture_dataset((steps + 1) * config.batch_size))
     torch.cuda.reset_peak_memory_stats()
+    graph_canon._canonical_cached.cache_clear()  # the run starts cold, as a user's does
+    canon_before = dict(native.CANON_PATHS)
+    random.seed(0)  # permute_smiles draws from the global random module
     _zero_counts()  # the path starts here
     start = time.perf_counter()
-    model, results = train.train_autoencoder(
-        config, data, max_steps_per_epoch=steps, canonicalize=False, seed=0)
+    model, results = train.train_autoencoder(config, data, max_steps_per_epoch=steps, seed=0)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - start
     counts = _counts()  # and ends here
+    canon_in_run = {k: native.CANON_PATHS[k] - canon_before[k] for k in canon_before}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     history = results["history"]
@@ -1153,7 +1408,7 @@ def phase_train():
           "xformer": [n_x, config.n_hidden_xformer, config.n_head],
           "egnn": [n_e, config.n_hidden_e3nn, config.msg_cutoff_e3nn],
           "xformer_remat": config.xformer_remat, "egnn_remat": config.egnn_remat,
-          "p_randsmiles": config.p_randsmiles, "canonicalize": False,
+          "p_randsmiles": config.p_randsmiles, "canonicalize": True,
           "parameters": sum(p.numel() for p in model.parameters()),
           "warmup_steps": warm, "timed_steps": timed,
           "step_seconds": step_s, "step_seconds_all": [float(x) for x in np.diff(data.stamps)],
@@ -1166,6 +1421,7 @@ def phase_train():
           "clip_loss_first_last": [losses[0, 2], losses[-1, 2]],
           "ar_loss_all": [float(x) for x in losses[:, 1]],
           "launches_per_step": per_step, "peak_mem_gb": peak_gb})
+    _host_pipeline(config, data, steps, step_s, canon_in_run)
 
     # the split of a step, outside the counted window: the same model and
     # the last batches again, each part between two CUDA events
@@ -1226,8 +1482,6 @@ def phase_train_fp32_vs_plain():
     through their plain versions: the packed route (K5f, K5b, K3, K4) at the
     recipe's n_seq, and the flash route (K2 and its replayed backward) at
     T 200."""
-    import random
-
     from coati_tpu_torch.data import fixture_dataset
     from coati_tpu_torch.data.xform import clip_ar_xform
     from coati_tpu_torch.training import train
@@ -1235,14 +1489,15 @@ def phase_train_fp32_vs_plain():
 
     def one(label, batch_size, n_seq, pad_to):
         config = grande_config(dtype="float32", n_layer_xformer=4, n_layer_e3gnn=2,
-                               batch_size=batch_size, n_seq=n_seq, p_randsmiles=0.0)
+                               batch_size=batch_size, n_seq=n_seq)
         _, tok = _train_step(config, None)
+        random.seed(0)  # permute_smiles draws from the global random module
         pipe = fixture_dataset(batch_size).get_data_pipe(
             batch_size=batch_size,
             xform_routine=lambda b: clip_ar_xform(
                 b, tokenizer=tok, p_dataset=config.p_dataset, p_formula=config.p_formula,
-                p_clip=config.p_clip, p_clip_cut=config.p_clip_cut, canonicalize=False,
-                rng=random.Random(0)))
+                p_clip=config.p_clip, p_clip_cut=config.p_clip_cut,
+                p_randsmiles=config.p_randsmiles, rng=random.Random(0)))
         host = next(iter(pipe))
         if pad_to:  # widen the token arrays with padding, which the loss ignores
             for key, fill in (("tokens", 0), ("raw_tokens", 0), ("y_next", -1)):
@@ -1324,6 +1579,7 @@ def main() -> int:
     import coati_tpu_torch  # noqa: F401  (fails outside a checkout of the repository)
 
     started = time.perf_counter()
+    emit(host_cpu())
 
     def lap(phase):
         emit({"phase": "elapsed", "after": phase, "seconds": time.perf_counter() - started})
@@ -1334,12 +1590,16 @@ def main() -> int:
     lap("kernels")
     phase_routing()
     lap("routing")
+    phase_chem()
+    lap("chem")
     model, tok = load_model()
     paths = {}
     paths["smiles"], flash_run = phase_smiles(model, tok)
     lap("smiles")
     paths["points"] = phase_points(model, tok)
     lap("points")
+    paths["points_from_smiles"] = phase_points_from_smiles(model, tok)
+    lap("points_from_smiles")
     paths["packed"] = phase_packed(model, tok, flash_run)
     lap("packed")
     phase_k1_positions(model.config.n_layer_xformer)

@@ -1,8 +1,10 @@
-"""Periodic-table positions and the point encoder's atom featurization.
+"""Periodic-table positions and masses, and the point encoder's atom
+featurization.
 
 The port's own copy of what coati_tpu/common/periodic_table.py gives the
-EGNN: periodic_table.json holds, per element (row z = atomic number, row 0
-the padding element), `number`, `symbol`, `xpos` and `ypos`. The 28-d
+EGNN and the chemistry: periodic_table.json holds, per element (row z =
+atomic number, row 0 the padding element), `number`, `symbol`, `xpos`,
+`ypos` and `atomic_mass` (chem/descriptors.py's average weights). The 28-d
 one-hot uses raw xpos / 18+ypos indices; this layout is load-bearing for
 published checkpoint weights, keep it.
 """

@@ -1,11 +1,16 @@
 """Training batch transform: augmentation + tokenization (host-side).
 
-Own copy of coati_tpu/data/xform.py (numpy only), the reference's
-clip_ar_xform. It runs on the host in the input pipeline and emits
-fixed-shape numpy batches. Identical augmentation logic, probabilities and
-order of random draws, so the same `random.Random` seed gives the same batch
-in both packages:
+Own copy of coati_tpu/data/xform.py (numpy and the port's own chemistry),
+the reference's clip_ar_xform. It runs on the host in the input pipeline and
+emits fixed-shape numpy batches. Identical augmentation logic, probabilities
+and order of random draws, so the same `random.Random` seed (and, for the
+permuted SMILES, the same state of the global `random` module, which
+chem/selfies_lite.permute_smiles draws from) gives the same batch in both
+packages:
 
+  * every row canonicalized (chem/graph_canon.py: its C pipeline in
+    native/fast_canon.c when a compiler is present, else Python; the two
+    give the same bytes);
   * random [SET]/<collection>, [FORMULA], [GRAPH] prefixes/suffixes in
     shuffled order, always containing [SMILES]<canonical>;
   * CLIP prefix '[CLIP][UNK]' with probability p_clip, optionally with a
@@ -13,46 +18,114 @@ in both packages:
   * random SMILES permutation of the s2s target with p_randsmiles;
   * oversize fallback to the plain SMILES form; failed rows become
     all-pad token rows with a stop-only s2s row (loss-inert);
-  * shifted y_next labels with special tokens masked to -1.
+  * shifted y_next labels with special tokens masked to -1;
+  * rows without atoms get a conformer from chem/conformers.py, and
+    fp_targets adds host-side fingerprints (chem/fingerprints.py).
 
 `pad_width_to` rounds the trimmed token width up to a multiple (default 16),
 so that the attention kernels see few distinct T.
-
-What needs the chemistry modules of the JAX package (coati_tpu/chem, not
-ported yet) raises here, naming the missing module, and is never skipped
-silently: canonicalize=True, a permutation without a precomputed
-`rand_smiles` column, rows without atoms, fp_targets, and the graph
-representation (coati_tpu/tokenizers/graph_tokens.py).
 """
 
 from __future__ import annotations
 
+import functools as _functools
 import random as _random
+import warnings
 from typing import Dict, Optional
 
 import numpy as np
 
+from coati_tpu_torch.chem.rdkit_support import canonicalize_or_self, permute_smiles
+from coati_tpu_torch.tokenizers.graph_tokens import adj_mat_to_tokens
 from coati_tpu_torch.tokenizers.trie_tokenizer import TrieTokenizer
 
 
-def _not_ported(what: str, module: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"clip_ar_xform: {what} needs {module} of the JAX package, which is not ported yet"
-    )
+# Per-process conformer-synthesis accounting: a corpus that
+# systematically fails to embed must be visible, not a silent CLIP-signal
+# collapse. Warn once when a batch exceeds the threshold.
+EMBED_FAIL_COUNTS = {"attempted": 0, "failed": 0}
+_EMBED_FAIL_WARN = 0.25
+_embed_fail_warned = False
+
+
+@_functools.lru_cache(maxsize=50_000)
+def _embed_conformer_cached(smiles: str):
+    from coati_tpu_torch.chem.rdkit_support import mol_to_atoms_coords
+
+    out = mol_to_atoms_coords(smiles, hydrogenate=True)
+    if out is None:
+        return None
+    return np.asarray(out[0], np.int32), np.asarray(out[1], np.float32)
 
 
 def _conformers_missing(batch: Dict) -> bool:
-    """True when any row lacks 3D inputs. stack_batch always emits
-    'atoms'/'coords' columns: SMILES-only rows arrive as present-but-empty
-    (B, 0) arrays, and a mixed batch zero-fills the atom-less rows, so a
-    key-presence check is not enough. (An all-zero-atom row reaching the
-    model is not inert: the EGNN pools nothing and the CLIP loss floors.)"""
+    """True when any row lacks 3D inputs. stack_batch (batch_pipe.py:49)
+    ALWAYS emits 'atoms'/'coords' columns — SMILES-only rows arrive as
+    present-but-EMPTY (B, 0) arrays, and a mixed batch zero-fills the
+    atom-less rows — so a key-presence check is not enough. (An
+    all-zero-atom batch reaching the model is catastrophic, not inert:
+    the EGNN masked-pools nothing, h_e3gnn is row-constant, and the
+    CLIP loss floors at exactly ln(B) while its weighted noise gradient
+    collapses the SMILES encoder.)"""
     if "atoms" not in batch or "coords" not in batch:
         return True
     atoms = np.asarray(batch["atoms"])
     if atoms.ndim != 2 or atoms.shape[-1] == 0:
         return True
     return not (atoms > 0).any(axis=-1).all()
+
+
+def _synthesize_conformers(batch: Dict) -> None:
+    """Fill missing atoms/coords from SMILES via mol_to_atoms_coords
+    (rdkit ETKDG when present, else the in-tree distance-geometry
+    embedder chem/conformers.py; reference datasets precompute these
+    columns with ETKDG, rdkit_utils.py:162-219). Rows that already
+    carry atoms keep them; rows that fail to embed get all-padding
+    atoms — the same loss-inert degradation as tokenize failures.
+    A batch where many rows fail to embed is NOT inert (zero-atom rows
+    degrade the CLIP signal — see _conformers_missing), so failure
+    fractions above _EMBED_FAIL_WARN are warned once per process."""
+    b = len(batch["smiles"])
+    old_a = old_c = None
+    if "atoms" in batch and np.asarray(batch["atoms"]).ndim == 2 \
+            and np.asarray(batch["atoms"]).shape[-1] > 0:
+        old_a = np.asarray(batch["atoms"])
+        old_c = np.asarray(batch["coords"])
+    rows = []
+    n_embedded = n_failed = 0
+    for i, s in enumerate(batch["smiles"]):
+        if old_a is not None and (old_a[i] > 0).any():
+            rows.append((old_a[i], old_c[i]))
+        else:
+            r = _embed_conformer_cached(str(s))
+            rows.append(r)
+            n_embedded += 1
+            n_failed += r is None
+    EMBED_FAIL_COUNTS["attempted"] += n_embedded
+    EMBED_FAIL_COUNTS["failed"] += n_failed
+    if n_embedded and n_failed / n_embedded > _EMBED_FAIL_WARN:
+        global _embed_fail_warned
+        if not _embed_fail_warned:
+            _embed_fail_warned = True
+            warnings.warn(
+                f"conformer synthesis failed for {n_failed}/{n_embedded} "
+                "rows of a batch; failed rows train with zero atoms, and "
+                "a systematically failing corpus collapses the CLIP "
+                "signal (see _conformers_missing). Totals in "
+                "coati_tpu_torch.data.xform.EMBED_FAIL_COUNTS.",
+                stacklevel=2,
+            )
+    n_max = max((r[0].shape[0] for r in rows if r is not None), default=1)
+    atoms = np.zeros((b, n_max), np.int32)
+    coords = np.zeros((b, n_max, 3), np.float32)
+    for i, r in enumerate(rows):
+        if r is None:
+            continue
+        a, c = r
+        atoms[i, : a.shape[0]] = a
+        coords[i, : c.shape[0]] = c
+    batch["atoms"] = atoms
+    batch["coords"] = coords
 
 
 def _formula_string(atoms_row: np.ndarray) -> str:
@@ -80,31 +153,25 @@ def clip_ar_xform(
     fp_targets: Optional[tuple] = None,
     canonicalize: bool = True,
 ) -> Dict:
-    """canonicalize=False uses the input strings verbatim (a corpus that
-    is already canonical); True is the reference's default and raises here
-    until the canonicalizer is ported. fp_targets (the fingerprint
-    variant's host-side targets) raises for the same reason."""
+    """fp_targets: optional tuple like (("morgan", 2048),) — computes the
+    named fingerprints host-side into batch['fp_<name>'] (the fp-variant
+    xform, clip_fp_e2e.py:21,273-278; rdkit when present, else the
+    in-tree ECFP engine in chem/fingerprints.py).
+    canonicalize=False uses the input strings verbatim — the SELFIES
+    adapter needs this: cached selfies are already canonical
+    (clip_e2e_selfies.py:76) and RDKit would happily parse
+    bracket-atom selfies AS SMILES and rewrite them."""
     if "smiles" not in batch:
         raise KeyError("clip_ar_xform: the batch has no 'smiles' column")
-    if canonicalize:
-        raise _not_ported("canonicalize=True", "coati_tpu/chem/graph_canon.py")
-    if fp_targets:
-        raise _not_ported("fp_targets", "coati_tpu/chem/fingerprints.py")
-    if p_randsmiles > 0 and "rand_smiles" not in batch:
-        raise _not_ported(
-            "p_randsmiles > 0 without a 'rand_smiles' column",
-            "coati_tpu/chem/rdkit_support.py (permute_smiles)",
-        )
-    if p_graph > 0 and "adj_mat" in batch and "adj_mat_atoms" in batch:
-        raise _not_ported("p_graph > 0", "coati_tpu/tokenizers/graph_tokens.py")
     if _conformers_missing(batch):
-        raise _not_ported("a row without atoms", "coati_tpu/chem/conformers.py")
+        # SMILES-only (or mixed) rows: synthesize 3D inputs on the fly
+        _synthesize_conformers(batch)
     rng = rng or _random
     n_seq = tokenizer.n_seq
     token_rows, s2s_rows = [], []
 
     for k, smiles_in in enumerate(batch["smiles"]):
-        canonical = smiles_in
+        canonical = canonicalize_or_self(smiles_in) if canonicalize else smiles_in
         try:
             reps = ["smiles"]
             if rng.random() < p_dataset:
@@ -113,7 +180,8 @@ def clip_ar_xform(
                     reps.append("set")
             if rng.random() < p_formula:
                 reps.append("formula")
-            rng.random()  # the graph representation's draw; a batch that could take it was refused
+            if rng.random() < p_graph and "adj_mat" in batch and "adj_mat_atoms" in batch:
+                reps.append("graph")
             rng.shuffle(reps)
 
             text = ""
@@ -124,6 +192,10 @@ def clip_ar_xform(
                     text += "[SMILES]" + canonical
                 elif rep == "formula":
                     text += _formula_string(batch["atoms"][k])
+                elif rep == "graph":
+                    text += adj_mat_to_tokens(
+                        batch["adj_mat"][k], batch["adj_mat_atoms"][k]
+                    )
             text += "[STOP]"
             ttext = tokenizer.tokenize_text(text, pad=False, range_check=False)
 
@@ -167,8 +239,12 @@ def clip_ar_xform(
                 )
 
             if rng.random() < p_randsmiles:
-                # a precomputed permutation column (checked above)
-                permuted = str(batch["rand_smiles"][k])
+                # precomputed permutation columns (SELFIES caches carry
+                # 'rand_smiles'); otherwise permute via RDKit
+                if "rand_smiles" in batch:
+                    permuted = str(batch["rand_smiles"][k])
+                else:
+                    permuted = permute_smiles(canonical)
                 s2s_text = _tok("[SMILES]" + permuted + "[STOP]")
                 unperm = _tok("[SMILES]" + canonical + "[STOP]")
             else:
@@ -229,4 +305,18 @@ def clip_ar_xform(
     ):
         y_next[y_next == t] = -1
     batch["y_next"] = y_next
+
+    if fp_targets:
+        from coati_tpu_torch.chem.rdkit_support import mol_to_morgan
+
+        for name, n_bits in fp_targets:
+            if name != "morgan":
+                raise ValueError(f"unsupported fp target {name!r}")
+            fps = []
+            for s in batch["smiles"]:
+                fp = mol_to_morgan(str(s), radius=2, n_bits=n_bits)
+                fps.append(
+                    fp if fp is not None else np.zeros((n_bits,), np.uint8)
+                )
+            batch[f"fp_{name}"] = np.stack(fps).astype(np.int32)
     return batch

@@ -18,9 +18,8 @@ over all valid tokens of the batch.
 PyTorch modules and optimizers hold their state, so where the JAX step maps
 (params, opt_state, rng, batch) to new ones, `TrainStep` updates the model
 and the optimizer it was built with, and draws from the generator it is
-given. Multi-device training, restart checkpoints (`orbax_dir`) and the
-chemistry the transform needs for `canonicalize=True` are not ported yet and
-raise.
+given. Multi-device training and restart checkpoints (`orbax_dir`) are not
+ported yet and raise.
 """
 
 from __future__ import annotations
@@ -330,14 +329,13 @@ def train_autoencoder(
     device=None,
     logger: Optional[COATILogger] = None,
     max_steps_per_epoch: Optional[int] = None,
-    canonicalize: bool = True,
     seed: int = 0,
 ) -> Tuple[CoatiModel, dict]:
     """Full pretraining loop. `dataset` must expose get_data_pipe(...).
     Runs on `device`: the CUDA card unless the caller names another; with no
-    card and no device this raises. `canonicalize` goes to clip_ar_xform,
-    whose default True raises until the canonicalizer is ported: pass False
-    for a corpus that is canonical already. Returns (model, results);
+    card and no device this raises. Every row is canonicalized and augmented
+    by clip_ar_xform as in coati_tpu, drawing from the global `random`
+    module. Returns (model, results);
     results["history"] holds (partition, epoch, step, loss, ar_loss,
     clip_loss) per step and results["train_step_seconds"] the host seconds
     of each training step (a step's metrics are waited for one step later,
@@ -428,7 +426,6 @@ def train_autoencoder(
             p_clip=config.p_clip,
             p_clip_cut=config.p_clip_cut,
             p_randsmiles=config.p_randsmiles,
-            canonicalize=canonicalize,
         )
 
     generator = torch.Generator(device=device).manual_seed(seed + 1)

@@ -142,75 +142,105 @@ def _row_batch(smiles, atoms, coords, **columns):
     return stack_batch(rows)
 
 
+GRANDE_XFORM = dict(p_dataset=0.2, p_formula=0.0, p_fim=0.0, p_clip=0.9, p_clip_cut=0.3)
+# (keyword arguments of both calls, how the batch differs from rows with atoms
+# and canonical SMILES); "verbatim" cases pass canonicalize=False
 XFORM_CASES = {
-    "grande": dict(p_dataset=0.2, p_formula=0.0, p_fim=0.0, p_clip=0.9, p_clip_cut=0.3),
-    "all_prefixes_and_fim": dict(p_dataset=0.5, p_formula=0.5, p_fim=0.8, p_clip=0.4,
-                                 p_clip_cut=0.5),
-    "permuted_column": dict(p_dataset=0.2, p_formula=0.2, p_clip=0.9, p_randsmiles=0.5),
+    "grande": (dict(GRANDE_XFORM), ()),
+    "all_prefixes_and_fim": (dict(p_dataset=0.5, p_formula=0.5, p_fim=0.8, p_clip=0.4,
+                                  p_clip_cut=0.5), ()),
+    "permuted_column": (dict(p_dataset=0.2, p_formula=0.2, p_clip=0.9, p_randsmiles=0.5,
+                             canonicalize=False), ("rand_smiles",)),
+    "canonicalize": (dict(GRANDE_XFORM), ("rewritten",)),
+    "permuted": (dict(GRANDE_XFORM, p_randsmiles=0.5), ("rewritten",)),
+    "fp_targets": (dict(GRANDE_XFORM, fp_targets=(("morgan", 64), ("morgan", 2048))), ()),
+    "p_graph": (dict(GRANDE_XFORM, p_graph=0.5, p_formula=0.3), ("graph",)),
+    "no_atoms": (dict(GRANDE_XFORM, p_formula=0.5), ("no_atoms",)),
+    "mixed_atoms": (dict(GRANDE_XFORM, p_formula=0.5), ("rows_without_atoms",)),
 }
+
+
+def _graph_columns(smiles):
+    """adj_mat (edges a, b, order; 1.5 aromatic) and adj_mat_atoms (Z) of
+    each molecule, as a precomputed graph column holds them."""
+    from coati_tpu_torch.chem.fingerprints import _atomic_number
+    from coati_tpu_torch.chem.selfies_lite import parse_smiles
+
+    adj, z = [], []
+    for s in smiles:
+        mol = parse_smiles(s)
+        z.append(np.array([_atomic_number(a.element) for a in mol.atoms]))
+        adj.append(np.array([(b.a, b.b, 1.5 if b.aromatic else b.order) for b in mol.bonds]))
+    return adj, z
+
+
+def _xform_batch(smiles, atoms, coords, changes):
+    columns = {}
+    if "rand_smiles" in changes:  # any other writing will do: the column is used verbatim
+        columns["rand_smiles"] = ["C" + s for s in smiles]
+    if "rewritten" in changes:  # other writings of the same molecules
+        from coati_tpu_torch.chem.selfies_lite import permute_smiles
+
+        rng = random.Random(9)
+        smiles = [permute_smiles(s, rng) for s in smiles]
+    batch = _row_batch(smiles, atoms, coords, **columns)
+    if "graph" in changes:
+        batch["adj_mat"], batch["adj_mat_atoms"] = _graph_columns(smiles)
+    if "no_atoms" in changes:
+        batch["atoms"], batch["coords"] = np.zeros((len(smiles), 0)), np.zeros((len(smiles), 0, 3))
+    if "rows_without_atoms" in changes:
+        batch["atoms"][[2, 7, 30]] = 0
+    return batch
 
 
 @pytest.mark.parametrize("case", sorted(XFORM_CASES))
 def test_clip_ar_xform_gives_coati_tpu_s_batch_from_the_same_seed(case):
-    """The same random.Random seed on both sides gives identical tokens,
-    raw_tokens and y_next: the same draws in the same order, rows with atoms,
-    canonicalize=False, permutations only from a precomputed column. n_seq
-    40 makes some rows take the oversize fallback."""
+    """The same random.Random seed on both sides, and the same state of the
+    global random module (permute_smiles draws from it), gives identical
+    tokens, raw_tokens, y_next, atoms, coordinates and fingerprints: the same
+    draws in the same order, on every branch of the transform: canonical
+    SMILES, other writings canonicalized, permutations from a column and
+    computed, fingerprint targets, the graph representation, and conformers
+    embedded for rows without atoms. n_seq 40 makes some rows take the
+    oversize fallback."""
     smiles, atoms, coords = load_points_fixture()
     pick = slice(100, 148)
-    columns = {}
-    if case == "permuted_column":  # any other writing will do: the column is used verbatim
-        columns["rand_smiles"] = ["C" + s for s in smiles[pick]]
-    kw = XFORM_CASES[case]
+    kw, changes = XFORM_CASES[case]
     mine_tok = TrieTokenizer(n_seq=40, **get_vocab("mar"))
     ref_tok = JaxTokenizer(n_seq=40, **jax_get_vocab("mar"))
     for seed in (0, 1):
-        mine = clip_ar_xform(_row_batch(smiles[pick], atoms[pick], coords[pick], **columns),
-                             tokenizer=mine_tok, canonicalize=False, rng=random.Random(seed), **kw)
-        ref = jxform.clip_ar_xform(_row_batch(smiles[pick], atoms[pick], coords[pick], **columns),
-                                   tokenizer=ref_tok, canonicalize=False,
-                                   rng=random.Random(seed), **kw)
-        for key in ("tokens", "raw_tokens", "y_next", "atoms"):
+        random.seed(100 + seed)
+        mine = clip_ar_xform(_xform_batch(smiles[pick], atoms[pick], coords[pick], changes),
+                             tokenizer=mine_tok, rng=random.Random(seed), **kw)
+        mine_draw = random.random()
+        random.seed(100 + seed)
+        ref = jxform.clip_ar_xform(_xform_batch(smiles[pick], atoms[pick], coords[pick], changes),
+                                   tokenizer=ref_tok, rng=random.Random(seed), **kw)
+        assert mine_draw == random.random()
+        keys = ["tokens", "raw_tokens", "y_next", "atoms"] + ["fp_morgan"] * ("fp_targets" in kw)
+        for key in keys:
             assert mine[key].dtype == ref[key].dtype and np.array_equal(mine[key], ref[key]), key
         np.testing.assert_array_equal(mine["coords"], ref["coords"])
         assert mine["tokens"].shape[1] % 8 == 0 and mine["tokens"].shape[1] <= 40
         assert (mine["y_next"] == -1).any() and (mine["tokens"] == mine_tok.clip_token).any()
-
-
-@pytest.mark.parametrize(
-    "change,module",
-    [
-        (dict(canonicalize=True), "graph_canon"),
-        (dict(p_randsmiles=0.3), "permute_smiles"),
-        (dict(fp_targets=(("morgan", 64),)), "fingerprints"),
-        (dict(p_graph=0.3, graph=True), "graph_tokens"),
-        (dict(no_atoms=True), "conformers"),
-        (dict(one_row_without_atoms=True), "conformers"),
-    ],
-    ids=["canonicalize", "p_randsmiles", "fp_targets", "p_graph", "no_atoms", "mixed_atoms"],
-)
-def test_clip_ar_xform_raises_on_what_needs_the_chemistry_modules(change, module):
-    """What the port's transform cannot do without coati_tpu/chem raises and
-    names the missing module; nothing is skipped silently."""
-    smiles, atoms, coords = load_points_fixture()
-    batch = _row_batch(smiles[:4], atoms[:4], coords[:4])
-    change = dict(change)
-    if change.pop("graph", False):
-        batch["adj_mat"], batch["adj_mat_atoms"] = [None] * 4, [None] * 4
-    if change.pop("no_atoms", False):
-        batch["atoms"], batch["coords"] = np.zeros((4, 0)), np.zeros((4, 0, 3))
-    if change.pop("one_row_without_atoms", False):
-        batch["atoms"][2] = 0
-    kw = dict(canonicalize=False)
-    kw.update(change)
-    tok = TrieTokenizer(n_seq=80, **get_vocab("mar"))
-    with pytest.raises(NotImplementedError, match=module):
-        clip_ar_xform(batch, tokenizer=tok, **kw)
+        assert (mine["atoms"] > 0).any(axis=1).all()
+    if "fp_targets" in kw:
+        assert mine["fp_morgan"].shape == (48, 2048) and mine["fp_morgan"].any(axis=1).all()
+    if "rewritten" in changes or case == "grande":  # the s2s targets, canonical or permuted
+        fits = [(row, target) for row, target in zip(mine["raw_tokens"], (
+            mine_tok.tokenize_text("[SMILES]" + s + "[STOP]", pad=False) for s in smiles[pick]))
+            if len(target) <= 40 and (row > 0).sum() > 1]  # not a row that was too long
+        same = sum(list(row[row > 0]) == target for row, target in fits)
+        assert len(fits) > 30
+        assert same == len(fits) if case != "permuted" else 0 < same < len(fits)
+    if "graph" in changes:
+        assert (mine["tokens"] == mine_tok.tokenize_text("[GRAPH]", pad=False)[0]).any()
 
 
 def test_fixture_smiles_are_canonical_and_the_dataset_serves_them_as_coati_tpu_would():
-    """canonicalize=False is sound for the fixture: all 1,024 SMILES are
-    fixed points of coati_tpu's canonicalizer. fixture_dataset strips each
+    """All 1,024 fixture SMILES are fixed points of coati_tpu's
+    canonicalizer, so the transform's canonicalization leaves the fixture's
+    conformer map keyed by what it trains on. fixture_dataset strips each
     row's padding, and its pipe yields the batches coati_tpu's
     SynthCorpusDataset yields over the same corpus and conformer map."""
     smiles, atoms, coords = load_points_fixture()
@@ -545,8 +575,7 @@ def test_train_autoencoder_end_to_end_and_both_packages_read_its_document(tmp_pa
                          model_path=config.model_dir, args=config.as_dict())
     logger.start()
     model, results = ttrain.train_autoencoder(
-        config, TinySyntheticDataset(), device="cpu", logger=logger, max_steps_per_epoch=4,
-        canonicalize=False)
+        config, TinySyntheticDataset(), device="cpu", logger=logger, max_steps_per_epoch=4)
     logger.stop()
     assert len(results["history"]) == 4 == len(results["train_step_seconds"])
     assert all(np.isfinite(h[3:]).all() for h in results["history"])
@@ -578,20 +607,20 @@ def test_train_autoencoder_end_to_end_and_both_packages_read_its_document(tmp_pa
     # resume with no training step returns the document's weights
     resumed, _ = ttrain.train_autoencoder(
         _tiny_config(tmp_path, resume_document=docs[-1], resume_optimizer=True, n_epochs=0),
-        TinySyntheticDataset(), device="cpu", canonicalize=False)
+        TinySyntheticDataset(), device="cpu")
     for name, p in resumed.named_parameters():
         np.testing.assert_array_equal(p.detach().numpy(), doc["model"][name])
     # the optimizer's moments are carried on, and training goes on from them
     again, more = ttrain.train_autoencoder(
         _tiny_config(tmp_path, resume_document=docs[-1], resume_optimizer=True),
-        TinySyntheticDataset(), device="cpu", max_steps_per_epoch=2, canonicalize=False)
+        TinySyntheticDataset(), device="cpu", max_steps_per_epoch=2)
     assert len(more["history"]) == 2
     assert any(not np.array_equal(p.detach().numpy(), doc["model"][n])
                for n, p in again.named_parameters())
     # transformer-only resume: the trunk is the document's, the rest is fresh
     partial, _ = ttrain.train_autoencoder(
         _tiny_config(tmp_path, resume_document=docs[-1], load_transformer_only=True, n_epochs=0),
-        TinySyntheticDataset(), device="cpu", canonicalize=False, seed=5)
+        TinySyntheticDataset(), device="cpu", seed=5)
     state = dict(partial.named_parameters())
     np.testing.assert_array_equal(state["xformer.lm_head.weight"].detach().numpy(),
                                   doc["model"]["xformer.lm_head.weight"])
@@ -617,13 +646,100 @@ def test_train_autoencoder_resumes_from_a_coati_tpu_document(tmp_path):
         model_kwargs=kwargs, optimizer_state={"not": "ours"}))
     resumed, _ = ttrain.train_autoencoder(
         _tiny_config(tmp_path, resume_document=str(path), resume_optimizer=True, n_epochs=0),
-        TinySyntheticDataset(), device="cpu", canonicalize=False)
+        TinySyntheticDataset(), device="cpu")
     want = state_from_coati_tpu(params_to_state(jparams))
     for name, p in resumed.named_parameters():
         assert torch.equal(p.detach(), want[name]), name
 
 
-def test_train_autoencoder_default_canonicalize_raises_until_the_canonicalizer_is_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="graph_canon"):
-        ttrain.train_autoencoder(_tiny_config(tmp_path), TinySyntheticDataset(), device="cpu",
-                                 max_steps_per_epoch=1)
+class FixtureRowsDataset:
+    """Fixture molecules as training rows, each SMILES written in another
+    atom order, so that the transform's canonicalization has work to do;
+    the atoms and coordinates are the fixture's. The same batches for either
+    package's trainer."""
+
+    summary = {"dataset_type": "fixture-rows-test"}
+
+    def __init__(self, rows):
+        from coati_tpu_torch.chem.selfies_lite import permute_smiles
+
+        smiles, atoms, coords = load_points_fixture()
+        rng = random.Random(4)
+        self.rows = []
+        for i in range(rows):
+            n = int((atoms[i] > 0).sum())
+            self.rows.append({"smiles": permute_smiles(smiles[i], rng),
+                              "source_collection": "chembl_mols",
+                              "atoms": atoms[i][:n].astype(np.int32), "coords": coords[i][:n]})
+
+    def get_data_pipe(self, batch_size=8, partition="train", required_fields=(),
+                      xform_routine=lambda x: x, **kw):
+        rows = [dict(r) for r in self.rows]
+        return batch_rows(rows, batch_size=batch_size, partition="raw",
+                          xform_routine=xform_routine, required_fields=["smiles"])
+
+
+@pytest.mark.parametrize("steps", [1, 3])
+def test_train_autoencoder_runs_the_grande_recipe_as_coati_tpu_does(tmp_path, steps):
+    """Both packages' train_autoencoder from one document, on the same rows
+    (other writings than the canonical ones), with the grande recipe's
+    transform: every row canonicalized, 30% of the targets permuted through
+    the global random module, seeded alike before each run, CLIP prefixes
+    with cuts. The clip-token choice draws from each package's own generator,
+    so p_clip_emb_smi is 1 (always the SMILES embedding). Each step's loss,
+    ar_loss and clip_loss agree within atol 3e-5, rtol 1e-4, the token
+    counts are equal (the same batches), and the weights after the last step
+    agree as in test_one_and_three_train_steps_track_coati_tpu."""
+    from coati_tpu.models.io import serialize_model as jax_serialize
+    from coati_tpu.parallel.mesh import make_mesh
+    from coati_tpu.training.logger import COATILogger as JaxLogger
+
+    grande = tconfig.grande_config()
+    recipe = {k: getattr(grande, k) for k in (
+        "p_dataset", "p_formula", "p_fim", "p_graph", "p_clip", "p_clip_cut", "p_randsmiles",
+        "tokenizer_vocab", "n_seq")}
+    assert recipe["p_randsmiles"] == 0.3 and recipe["tokenizer_vocab"] == "mar"
+    tok = TrieTokenizer(n_seq=80, **get_vocab("mar"))
+    kwargs = dict(n_layer_e3gnn=1, n_layer_xformer=1, n_hidden_xformer=16, n_hidden_e3nn=16,
+                  n_embd_common=16, n_head=2, n_seq=80, n_tok=tok.n_token, norm_clips=True,
+                  token_mlp=True)
+    jparams, _, _, _ = hp.model_pair(seed=81, **kwargs)
+    path = tmp_path / "start.pkl"
+    path.write_bytes(jax_serialize(
+        train_args={}, dataset_summary={}, model_state=params_to_state(jparams),
+        model_kwargs=kwargs))
+    data = FixtureRowsDataset(8 * steps)
+    docs = {}
+    for name, config_cls, logger_cls in (("mine", tconfig.TrainConfig, COATILogger),
+                                         ("ref", jconfig.TrainConfig, JaxLogger)):
+        config = config_cls(**dataclasses.asdict(_tiny_config(tmp_path / name)))
+        for k, v in recipe.items():
+            setattr(config, k, v)
+        config.max_n_seq, config.p_clip_emb_smi, config.batch_size = 80, 1.0, 8
+        config.resume_document = str(path)
+        logger = logger_cls(model_name="e3gnn_smiles_clip_e2e", output_path=config.output_dir,
+                            model_path=config.model_dir, args=config.as_dict())
+        logger.start()
+        random.seed(7)
+        if name == "mine":
+            model, _ = ttrain.train_autoencoder(config, data, device="cpu", logger=logger,
+                                                max_steps_per_epoch=steps)
+        else:
+            out, _ = jtrain.train_autoencoder(config, data, mesh=make_mesh(1), logger=logger,
+                                              max_steps_per_epoch=steps)
+        docs[name] = load_model_doc(sorted(glob.glob(os.path.join(config.model_dir, "*")))[-1])
+        logger.stop()
+    mine, ref = docs["mine"], docs["ref"]
+    assert mine["n_toks_processed"] == ref["n_toks_processed"] > 0
+    assert mine["n_grads_processed"] == ref["n_grads_processed"] == 8 * steps
+    for key in ("batch_losses", "ar_losses", "clip_losses"):
+        got, want = ([(e["step"], e["tag_n_toks"], e["value"]) for e in doc["offline_loss"][key]]
+                     for doc in (mine, ref))
+        assert len(got) == steps and [g[:2] for g in got] == [w[:2] for w in want]
+        np.testing.assert_allclose([g[2] for g in got], [w[2] for w in want],
+                                   atol=hp.ATOL, rtol=hp.RTOL, err_msg=key)
+    want = state_from_coati_tpu(params_to_state(out))
+    diffs = torch.cat([(p.detach() - want[n]).abs().flatten() for n, p in model.named_parameters()])
+    lr = mine["train_args"]["lr"]
+    assert float(diffs.max()) <= 3 * lr
+    assert float((diffs <= 1e-3 * lr).float().mean()) >= 0.999
