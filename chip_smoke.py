@@ -87,7 +87,33 @@ number is taken.
     versions: the loss and every parameter's gradient must agree. Once more
     at T 200, batch 32, where K2 carries the trunk and its backward replays
     the plain attention.
- 6. report: the card's name and power limit, one `kernels` JSON line, and
+ 6. coati2: COATI2 grande (16 x 512, 16 heads of 32, n_seq 128, SwiGLU-resnet
+    heads, the coati2_12_12 vocabulary) from seeded fresh weights, written
+    as a reference-format document and read back by load_coati2 on the card
+    (after the COATI paths, before train). (a) An fp32 greedy round trip of
+    64 corpus SMILES through the kernels and through the plain versions:
+    embeddings within 1e-5, tokens equal on at least 63 rows, and a row that
+    differs must first differ where the plain run's top-2 logit margin is
+    under 1e-4 (printed); (b) the production setting, bf16 with the int8 KV
+    cache, on the first 1,024 corpus SMILES that fit n_seq, k 100, inverse
+    temperature 2, timed and traced (untrained weights rarely emit [STOP],
+    so a call decodes to n_seq); (c) one property-conditioned decode
+    ([PROPS]...[ENDPROPS][SMILES]) through hcoati_to_2d_batch. K2 and K1
+    run at Dh 32. The kernels phase also holds K2, K1, K5f and K5b at
+    COATI2's shapes.
+ 7. coati2_train (after train_fp32_vs_plain): train_coati2 with the grande
+    recipe of examples/train_coati2.py in bf16 on corpus rows with only a
+    'smiles' column (the transform computes every property, as a user's
+    run does), batch 160, 3 warm-up and 10 timed steps from a seeded fresh
+    model and a seeded global random module: K5f 64 and K5b 32 times a
+    step, every loss finite, ar_loss falls; the transform's seconds a batch
+    in the run and its share of the step (`coati2_host_pipeline`); the
+    run's document reloaded by load_coati2 encodes as the model does; three
+    steps traced on batches made before. Then coati2_fp32_vs_plain: one
+    float32 step at full width (4 layers), batch 32, through the kernels
+    and through the plain versions: loss within 1e-5 relative, every
+    gradient within 1e-4 x max(1, max |plain|).
+ 8. report: the card's name and power limit, one `kernels` JSON line, and
     as the last line {"ok": true, "device": {...}}.
 
 Every number printed is measured in this run, on this card, except the
@@ -299,7 +325,7 @@ def phase_build():
     check(not spilled, f"kernels spill registers: {spilled}")
 
 
-def _attention_case(name, b, t, h, dh, dtype, gen):
+def _attention_case(name, b, t, h, dh, dtype, gen, timed=True):
     """A full-sequence attention wrapper (K2 `flash_causal_attention` or
     K5f `packed_causal_attention`) against causal_attention; K5f's case also
     times K2 on the same inputs."""
@@ -319,14 +345,17 @@ def _attention_case(name, b, t, h, dh, dtype, gen):
     tol = tolerance(ref, dtype, 1e-5)
     elt = torch.finfo(dtype).bits // 8
     bound, by = bound_ms(4 * b * t * h * dh * elt, 4 * b * h * (t * (t + 1) // 2) * dh, dtype)
-    exps = attention_exps(name, dtype, b, t, h)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     case = {
         "kernel": name, "shape": [b, t, h, dh], "dtype": str(dtype)[6:],
-        "max_abs_err": err, "tol": tol, "ok": err <= tol,
+        "max_abs_err": err, "tol": tol, "ok": err <= tol, "bound_ms": bound, "bound_by": by,
+    }
+    if not timed:
+        return case
+    exps = attention_exps(name, dtype, b, t, h)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    case.update({
         "ms": time_ms(lambda: kernel(q, k, v)),
         "plain_ms": time_ms(lambda: causal_attention(q, k, v, torch.float32)),
-        "bound_ms": bound, "bound_by": by,
         "library_ms": time_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
         ),
@@ -334,7 +363,7 @@ def _attention_case(name, b, t, h, dh, dtype, gen):
         # highest SM clock
         "exps": exps, "sm_clock_mhz": sm_clock_hz() / 1e6,
         "exp_floor_ms": exps / (SFU_RESULTS_PER_CLOCK * sm_clock_hz()) * 1e3,
-    }
+    })
     case["vs_library"] = case["ms"] / case["library_ms"]
     if kernel is packed_causal_attention:
         case["k2_ms"] = time_ms(lambda: flash_causal_attention(q, k, v))
@@ -623,12 +652,70 @@ def attention_cases(gen):
     return [_attention_case(*shape, gen) for shape in shapes]
 
 
+def coati2_kernel_cases(gen):
+    """The four attention kernels at COATI2 grande's shapes (16 heads of
+    32): K2 at the encode batch (T 128) and at its prefills (T 3 behind
+    [CLIP][UNK][SMILES], T 27 behind the conditioned prefix the path
+    decodes from), K1 in every production form at its decode batch over a
+    128-wide cache, K5f and K5b at the trainer's doubled views (B 320) and
+    its AR pass (B 160), at n_seq and at the widths its batches take (48 to
+    80, where the bf16 bodies group 4 or 2 heads a block forward and 1
+    backward; 128 groups 1 in both)."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [_attention_case("flash_causal_attention", 1024, t, 16, 32, bf16, gen)
+             for t in (128, 3, 27)]
+    for pos in (3, 36, 95, 127):
+        for kv in (bf16, "int8/float32", "int8/bfloat16"):
+            cases.append(_decode_case(1024, 128, 16, 32, pos, bf16, kv, gen))
+    for t in (128, 48, 64, 80):
+        for b in (320, 160):
+            cases.append(_attention_case("packed_causal_attention", b, t, 16, 32, bf16, gen))
+            cases.append(_attention_bwd_case(b, t, 16, 32, bf16, gen))
+    cases.append(_attention_bwd_case(320, 128, 16, 32, f32, gen))
+    for case in cases:
+        case["model"] = "coati2"
+    return cases
+
+
+# (kernel, B, T, H, Dh, dtype) of every full-sequence attention case held
+# against its plain version so far
+HELD = set()
+ATTENTION_KERNELS = ("flash_causal_attention", "packed_causal_attention",
+                     "packed_causal_attention_backward")
+
+
+def _held(case):
+    return (case["kernel"], *case["shape"], case["dtype"])
+
+
+def hold_path_shapes(phase, shapes):
+    """Holds each attention kernel against its plain version, untimed, at
+    the (kernel, B, T, H, Dh, dtype) shapes a path ran that phase kernels
+    did not hold: the widths of a path's batches come from its data."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    new = sorted(set(shapes) - HELD)
+    cases = []
+    for name, b, t, h, dh, dtype_name in new:
+        dtype = getattr(torch, dtype_name)
+        if name == "packed_causal_attention_backward":
+            cases.append(_attention_bwd_case(b, t, h, dh, dtype, gen, timed=False))
+        else:
+            cases.append(_attention_case(name, b, t, h, dh, dtype, gen, timed=False))
+    for case in cases:
+        emit({"phase": "kernel", "held_for": phase, **case})
+    emit({"phase": "path_shapes", "path": phase, "shapes": [list(x) for x in sorted(set(shapes))],
+          "held_here": [list(x) for x in new]})
+    HELD.update(new)
+    check(all(c["ok"] for c in cases), f"{phase}: a kernel case at the path's shapes is "
+          "outside tolerance")
+
+
 def phase_kernels():
     """Every kernel against its plain version; returns the case of each
     kernel at the production shape, for the report."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf16, f32 = torch.bfloat16, torch.float32
-    cases = attention_cases(gen)
+    cases = attention_cases(gen) + coati2_kernel_cases(gen)
     # K5b: the trainer's batch at its widest and at its real widths, the
     # inference batch at the widths K5f serves, ragged shapes at the other
     # head sizes, and the edges of the bf16 body's 16-row tiles
@@ -702,6 +789,7 @@ def phase_kernels():
         emit({"phase": "kernel", **case})
     bad = [c for c in cases if not c["ok"]]
     check(not bad, f"{len(bad)} kernel case(s) outside tolerance")
+    HELD.update(_held(c) for c in cases if c["kernel"] in ATTENTION_KERNELS)
     pick = {  # the case of each wrapper that the report's line carries
         "flash_causal_attention": {"shape": [1024, 250, 16, 16], "dtype": "bfloat16"},
         "decode_attention": {"shape": [1024, 250, 16, 16], "q_dtype": "bfloat16", "pos": 95},
@@ -814,8 +902,10 @@ def _zero_counts():
 
 
 def _tokens(tok, smiles, width):
+    """(B, width) '[SMILES]...[STOP]' rows padded with the vocabulary's
+    [PAD] (0 in COATI's, 31 in COATI2's)."""
     rows = [tok.tokenize_text("[SMILES]" + s + "[STOP]", pad=False) for s in smiles]
-    out = np.zeros((len(rows), width), np.int32)
+    out = np.full((len(rows), width), tok.pad_token, np.int32)
     for i, r in enumerate(rows):
         out[i, : len(r)] = r
     return out
@@ -1538,6 +1628,327 @@ def phase_train_fp32_vs_plain():
           f"flash route: launches {counts}")
 
 
+# COATI2 grande: the recipe of examples/train_coati2.py (16 x 512, 16 heads
+# of 32, n_seq 128, SwiGLU-resnet heads, the coati2_12_12 vocabulary)
+COATI2_GRANDE = dict(n_layer_xformer=16, n_hidden_xformer=512, embed_dim=512, n_head=16,
+                     n_seq=128, enc_to_coati="swiglu_resnet", n_direct_clr=64)
+COATI2_DOC = ROOT / "coati_tpu_torch" / "_build" / "coati2_grande_seed0.pkl"
+
+
+def _coati2_tokenizer():
+    from coati_tpu_torch.tokenizers import get_vocab
+    from coati_tpu_torch.tokenizers.trie_tokenizer import TrieTokenizer
+
+    return TrieTokenizer(n_seq=COATI2_GRANDE["n_seq"], **get_vocab("coati2_12_12"))
+
+
+def _coati2_corpus(tok, n):
+    """The first n corpus SMILES whose [SMILES]...[STOP] fits n_seq."""
+    out = []
+    with gzip.open(CORPUS, "rt") as f:
+        for line in f:
+            s = line.strip()
+            with contextlib.suppress(KeyError):
+                if len(tok.tokenize_text("[SMILES]" + s + "[STOP]", pad=False,
+                                         range_check=False)) <= tok.n_seq:
+                    out.append(s)
+            if len(out) == n:
+                return out
+    return out
+
+
+def _top2_margin(model, tok, h, row, pos):
+    """The plain version's margin between its two largest logits at the
+    step that chose token `pos` of `row`, teacher-forced in float32."""
+    from coati_tpu_torch.models.transformer import forward_logits
+
+    with plain_versions(), torch.no_grad():
+        tokens = torch.as_tensor(np.asarray(row)[None], device="cuda")
+        inject = model._clip_token(np.asarray(h, np.float32)[None])
+        logits = forward_logits(model._compute.xformer, model.config.xformer_config, tokens,
+                                inject, tok.unk_token)[0, pos - 1].float()
+    top = logits.topk(2).values
+    return float(top[0] - top[1])
+
+
+def phase_coati2():
+    """COATI2 grande on the card (inference): seeded fresh weights written
+    as a reference-format document and read back by load_coati2; an fp32
+    greedy round trip through the kernels and through the plain versions;
+    the production round trip of 1,024 corpus SMILES; one
+    property-conditioned decode. Returns the launch counts of the path."""
+    from coati_tpu_torch.data.xform_coati2 import property_tokens
+    from coati_tpu_torch.models.coati2 import COATI2
+    from coati_tpu_torch.models.io import load_coati2, model_to_state, serialize_model
+    from coati_tpu_torch.training.train_coati2 import Coati2TrainConfig, fresh_model
+
+    tok = _coati2_tokenizer()
+    config = Coati2TrainConfig(**COATI2_GRANDE)
+    model = fresh_model(config.model_config(tok.n_token), torch.device("cpu"), seed=0)
+    COATI2_DOC.parent.mkdir(parents=True, exist_ok=True)
+    COATI2_DOC.write_bytes(serialize_model(
+        train_args={"tokenizer_vocab": "coati2_12_12"}, dataset_summary={},
+        model_state=model_to_state(model), model_kwargs=config.model_kwargs(tok.n_token)))
+    del model
+    start = time.perf_counter()
+    m, tok = load_coati2(str(COATI2_DOC))  # no device: the card
+    check(m.device.type == "cuda", f"coati2: model loaded on {m.device}, not the card")
+    cfg, n_layer = m.config, m.config.n_layer_xformer
+    emit({"phase": "coati2_load", "seconds": time.perf_counter() - start,
+          "config": {k: getattr(cfg, k) for k in (*COATI2_GRANDE, "n_tok")},
+          "head_dim": cfg.xformer_config.head_dim,
+          "parameters": sum(p.numel() for p in m.params.parameters())})
+    check(cfg.xformer_config.head_dim == 32, "coati2: head dim is not 32")
+    smiles = _coati2_corpus(tok, 1024)
+    check(len(smiles) == 1024, f"coati2: {len(smiles)} corpus SMILES fit n_seq")
+    tokens = _tokens(tok, smiles, tok.n_seq)
+
+    # fidelity: fp32 greedy, 64 rows, through the plain versions and the kernels
+    fid = tokens[:64]
+
+    def greedy():
+        h = m.encode_tokens(fid, tok)
+        out, rows = m.hcoati_to_2d_batch(h, tok, k=1, keep_special=True, return_tokens=True)
+        return h.float().cpu().numpy(), rows
+
+    with plain_versions():
+        (plain_h, plain_rows), _, plain_launches = _timed(greedy)
+    check(sum(plain_launches.values()) == 0, "coati2: the plain run launched a kernel")
+    _zero_counts()  # the path starts here
+    (h, rows), seconds, launches = _timed(greedy)
+    agree = sum(a == b for a, b in zip(rows, plain_rows))
+    differing = []
+    for i, (a, b) in enumerate(zip(rows, plain_rows)):
+        if a != b:
+            pos = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+            differing.append({"row": i, "position": pos,
+                              "plain_top2_margin": _top2_margin(m, tok, plain_h[i], b, pos)})
+    h_diff = float(np.abs(h - plain_h).max())
+    emit({"phase": "coati2_fp32_greedy", "rows": 64, "agree_with_plain": agree,
+          "embedding_max_abs_diff": h_diff, "differing_rows": differing,
+          "seconds": seconds, "launches": launches})
+    check(h_diff <= 1e-5, f"coati2 fp32: embeddings differ by {h_diff}")
+    check(agree >= 63, f"coati2 fp32: only {agree}/64 rows agree with the plain versions")
+    check(all(d["plain_top2_margin"] < 1e-4 for d in differing),
+          f"coati2 fp32: a row first differs where the plain margin is not under 1e-4: "
+          f"{differing}")
+    check(launches["flash_causal_attention"] == 2 * n_layer
+          and launches["decode_attention"] % n_layer == 0 and launches["decode_attention"] > 0,
+          f"coati2 fp32: launches {launches}")
+
+    # production: bf16 with the int8 KV cache, batch 1024
+    prod = COATI2(m.params, cfg.replace(dtype="bfloat16"), seed=0)
+    check(prod.config.xformer_config.kv_quantized, "coati2: bf16 does not quantize the cache")
+    kw = dict(k=100, inv_temp=2.0)
+    runs = [_round_trip(prod, tok, tokens, **kw) for _ in range(4)]  # the first is warm-up
+    for out, emb, _, run_launches in runs:
+        check(len(out) == 1024 and np.isfinite(emb).all()
+              and emb.shape == (1024, cfg.embed_dim),
+              "coati2: rows not decoded or embeddings not finite")
+        check(run_launches["flash_causal_attention"] == 2 * n_layer
+              and run_launches["packed_causal_attention"] == 0,
+              f"coati2: full-sequence kernel counts {run_launches}")
+        steps, rem = divmod(run_launches["decode_attention_quant"], n_layer)
+        check(steps > 0 and rem == 0, f"coati2: int8 decode kernel count {run_launches}")
+    seconds = statistics.median(r[2] for r in runs[1:])
+    encode_s = statistics.median(
+        _timed(lambda: prod.encode_tokens(tokens, tok))[1] for _ in range(3))
+    last = runs[-1][3]
+    emit({"phase": "coati2_production", "batch": 1024, "dtype": "bfloat16", "kv": "int8/float32",
+          "k": 100, "inv_temp": 2.0, "encode_T": tok.n_seq, "seconds": seconds,
+          "seconds_all": [r[2] for r in runs], "mol_per_s": 1024 / seconds,
+          "encode_seconds": encode_s, "decode_steps": last["decode_attention_quant"] // n_layer,
+          "max_decode_steps": tok.n_seq - 3,
+          "k2_launches": last["flash_causal_attention"],
+          "k1_launches": last["decode_attention_quant"], "launches_per_call": last,
+          "exact_round_trips": sum(a == b for a, b in zip(runs[-1][0], smiles)),
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    _profile(lambda: prod.smiles_to_2d_batch(tokens, tok, **kw), "coati2_production", seconds)
+
+    # a property-conditioned prefix, through hcoati_to_2d_batch
+    block = property_tokens(smiles[0], tok)
+    check(block.startswith("[PROPS]"), f"coati2: no conditioning block for {smiles[0]}")
+    fill = block + "[SMILES]"
+    h_prod = prod.encode_tokens(tokens, tok)
+    (out, rows), seconds, launches = _timed(lambda: prod.hcoati_to_2d_batch(
+        h_prod, tok, fill_in_from=fill, keep_special=True, return_tokens=True, **kw))
+    prefix = tok.tokenize_text("[CLIP][UNK]" + fill, pad=False)
+    check(all(r[: len(prefix)] == prefix for r in rows), "coati2: a row lost its prefix")
+    emit({"phase": "coati2_conditioned", "batch": 1024, "fill_in_from": fill,
+          "prefix_tokens": len(prefix), "seconds": seconds,
+          "decode_steps": launches["decode_attention_quant"] // n_layer, "launches": launches})
+    counts = _counts()  # the path ends here
+    # K2 in bf16 at the encode and at both prefills
+    plain_prefix = len(tok.tokenize_text("[CLIP][UNK][SMILES]", pad=False))
+    hold_path_shapes("coati2", [
+        ("flash_causal_attention", 1024, t, cfg.n_head, cfg.xformer_config.head_dim, "bfloat16")
+        for t in (tok.n_seq, plain_prefix, len(prefix))])
+    return counts
+
+
+def phase_coati2_train():
+    """The COATI2 training path: train_coati2 with the grande recipe in
+    bf16 on corpus rows with only a 'smiles' column. Returns the launch
+    counts of the path."""
+    from coati_tpu_torch.data.batch_pipe import SmilesRows
+    from coati_tpu_torch.models.coati2 import COATI2
+    from coati_tpu_torch.models.io import load_coati2, model_to_state, serialize_model
+    from coati_tpu_torch.training import train_coati2 as tt2
+
+    warm, timed = 3, 10
+    steps = warm + timed
+    config = tt2.Coati2TrainConfig(**COATI2_GRANDE, batch_size=160, lr=5e-4, n_epochs=1,
+                                   dtype="bfloat16")
+    tok = _coati2_tokenizer()
+    with gzip.open(CORPUS, "rt") as f:
+        corpus = f.read().split()
+    # rows with only a 'smiles' column, so that the transform computes the
+    # properties as in a user's run, in a seeded order; one batch more than
+    # is trained on: the loop takes it before it stops
+    picked = corpus[: (steps + 1) * config.batch_size]
+    order = np.random.default_rng(0).permutation(len(picked))
+    data = _StampedDataset(SmilesRows(picked[i] for i in order))
+    torch.cuda.reset_peak_memory_stats()
+    random.seed(0)  # the transform draws from the global random module
+    _zero_counts()  # the path starts here
+    start = time.perf_counter()
+    model, results = tt2.train_coati2(config, data, max_steps_per_epoch=steps, seed=0)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - start
+    counts = _counts()  # and ends here
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    history = results["history"]
+    check(len(history) == steps, f"coati2_train: {len(history)} steps, not {steps}")
+    losses = np.array([h[3:] for h in history], np.float64)  # loss, ar_loss, clr_loss
+    check(bool(np.isfinite(losses).all()), "coati2_train: a loss is not finite")
+    check(losses[-1, 1] < losses[0, 1],
+          f"coati2_train: ar_loss went from {losses[0, 1]} to {losses[-1, 1]}")
+    per_step = {name: c / steps for name, c in counts.items()}
+    n_x = config.n_layer_xformer
+    # the doubled views and the AR pass, each recomputed once under remat
+    expected = {"packed_causal_attention": 4 * n_x, "packed_causal_attention_backward": 2 * n_x,
+                "flash_causal_attention": 0, "decode_attention": 0, "decode_attention_quant": 0,
+                "egnn_messages": 0, "egnn_messages_backward": 0}
+    check(per_step == expected, f"coati2_train: launches a step {per_step}, expected {expected}")
+    intervals = np.diff(data.stamps)[warm:]
+    check(len(intervals) == timed, f"coati2_train: {len(intervals)} timed steps, not {timed}")
+    step_s = float(np.median(intervals))
+    widths = sorted({(b["tokens"].shape[1], b["raw_tokens"].shape[1])
+                     for b in data.batches[:steps]})
+    # K5f and K5b in bf16 at the widths the run took: the AR pass (B 160)
+    # at the targets' width, the two views as one batch (B 320) at theirs
+    head = (config.n_head, config.n_hidden_xformer // config.n_head, "bfloat16")
+    hold_path_shapes("coati2_train", [
+        (kernel, b, t, *head) for t_ar, t_views in widths
+        for b, t in ((config.batch_size, t_ar), (2 * config.batch_size, t_views))
+        for kernel in ("packed_causal_attention", "packed_causal_attention_backward")])
+    emit({"phase": "coati2_train", "recipe": "examples/train_coati2.py grande",
+          "dtype": config.dtype, "batch": config.batch_size, "n_seq": config.n_seq,
+          "xformer": [n_x, config.n_hidden_xformer, config.n_head], "remat": config.remat,
+          "parameters": sum(p.numel() for p in model.parameters()),
+          "warmup_steps": warm, "timed_steps": timed,
+          "step_seconds": step_s, "step_seconds_all": [float(x) for x in np.diff(data.stamps)],
+          "mol_per_s": config.batch_size / step_s,
+          "trainer_step_seconds_all": results["train_step_seconds"],
+          "train_coati2_seconds": total_s, "batch_widths_tokens_views": widths,
+          "loss_first_last": [losses[0, 0], losses[-1, 0]],
+          "ar_loss_first_last": [losses[0, 1], losses[-1, 1]],
+          "clr_loss_first_last": [losses[0, 2], losses[-1, 2]],
+          "ar_loss_all": [float(x) for x in losses[:, 1]],
+          "launches_per_step": per_step, "peak_mem_gb": peak_gb})
+
+    props_id = tok.tokenize_text("[PROPS]", pad=False)[0]
+    with_props = sum(int((b["tokens"][:, 0] == props_id).sum()) for b in data.batches[:steps])
+    in_run = float(np.median(data.xform_s[:steps]))
+    emit({"phase": "coati2_host_pipeline", "batch": config.batch_size, "batches": steps,
+          "p_props": config.p_props, "xform_in_run_s": in_run,
+          "xform_in_run_s_all": data.xform_s[:steps], "step_seconds": step_s,
+          "in_run_share_of_step": in_run / step_s,
+          "rows_with_properties": with_props, "rows": steps * config.batch_size})
+    check(0 < with_props < steps * config.batch_size,
+          f"coati2_train: {with_props} rows drew properties")
+
+    # the run's document, read back by load_coati2, encodes as the model does
+    path = COATI2_DOC.with_name("coati2_trained.pkl")
+    path.write_bytes(serialize_model(
+        train_args=config.as_dict(), dataset_summary=data.summary,
+        model_state=model_to_state(model), model_kwargs=config.model_kwargs(tok.n_token)))
+    loaded, ltok = load_coati2(str(path))
+    rows = _tokens(ltok, corpus[:8], ltok.n_seq)
+    h = loaded.encode_tokens(rows, ltok)
+    direct = COATI2(model.eval(), loaded.config).encode_tokens(rows, tok)
+    diff = float((h - direct).abs().max())
+    emit({"phase": "coati2_train_document", "rows": 8, "shape": list(h.shape),
+          "finite": bool(torch.isfinite(h).all()), "max_abs_diff_vs_trained_model": diff})
+    check(h.shape == (8, config.embed_dim) and bool(torch.isfinite(h).all()) and diff <= 1e-5,
+          f"coati2_train: the reloaded document encodes {diff} away")
+
+    # three traced steps on batches made before, outside the counted window
+    step = tt2.Coati2TrainStep(
+        model.train(), config.model_config(tok.n_token),
+        tt2.make_optimizer(config, model), stop_token=tok.stop_token,
+        unk_token=tok.unk_token, pad_token=tok.pad_token,
+        token_entropy_unit=float(np.log2(tok.n_token)))
+    batches = [tt2.batch_to_device(b, torch.device("cuda")) for b in data.batches[-4:]]
+    step(batches[0])  # warm-up: makes the optimizer's state
+    _, wall_s, _ = _timed(lambda: [step(b) for b in batches[1:]])
+    _profile(lambda: [step(b) for b in batches[1:]], "coati2_train_step_x3", wall_s, top=24)
+
+    return counts
+
+
+def phase_coati2_fp32_vs_plain():
+    """One float32 COATI2 step at full width (4 layers of 512, 16 heads of
+    32), batch 32, T <= 128, through the kernels (K5f, K5b) and through their
+    plain versions: the loss and every parameter's gradient must agree."""
+    from coati_tpu_torch.data.xform_coati2 import coati2_ar_xform
+    from coati_tpu_torch.training import train_coati2 as tt2
+
+    config = tt2.Coati2TrainConfig(**dict(COATI2_GRANDE, n_layer_xformer=4), batch_size=32)
+    tok = _coati2_tokenizer()
+    model_cfg = config.model_config(tok.n_token)
+    with gzip.open(CORPUS, "rt") as f:
+        rows = [next(f).strip() for _ in range(32)]
+    random.seed(0)
+    host = coati2_ar_xform({"smiles": rows}, tok, rng=random.Random(0))
+    batch = tt2.batch_to_device(host, torch.device("cuda"))
+
+    def one(plain):
+        model = tt2.fresh_model(model_cfg, torch.device("cuda"), seed=0)
+        step = tt2.Coati2TrainStep(model, model_cfg, None, stop_token=tok.stop_token,
+                                   unk_token=tok.unk_token, pad_token=tok.pad_token,
+                                   token_entropy_unit=float(np.log2(tok.n_token)))
+        _zero_counts()
+        with plain_versions() if plain else contextlib.nullcontext():
+            loss, _, _ = step.losses(batch)
+            loss.backward()
+        torch.cuda.synchronize()
+        return float(loss.detach()), {n: p.grad for n, p in model.named_parameters()}, _counts()
+
+    plain_loss, plain_grads, plain_counts = one(True)
+    check(sum(plain_counts.values()) == 0, "coati2_fp32_vs_plain: the plain step launched")
+    loss, grads, counts = one(False)
+    check(counts["packed_causal_attention_backward"] == 2 * 4
+          and counts["flash_causal_attention"] == 0, f"coati2_fp32_vs_plain: launches {counts}")
+    worst, worst_name = 0.0, ""
+    for name, g in grads.items():
+        ref = plain_grads[name]
+        check(g is not None and ref is not None, f"coati2_fp32_vs_plain: no gradient for {name}")
+        tol = 1e-4 * max(1.0, float(ref.abs().max()))
+        err = float((g - ref).abs().max())
+        check(err <= tol, f"coati2_fp32_vs_plain: gradient of {name} differs by {err} (tol {tol})")
+        if err / tol > worst:
+            worst, worst_name = err / tol, name
+    rel = abs(loss - plain_loss) / abs(plain_loss)
+    emit({"phase": "coati2_fp32_vs_plain", "batch": 32, "T": int(batch["tokens"].shape[1]),
+          "views_T": int(batch["raw_tokens"].shape[1]), "layers": 4, "loss": loss,
+          "plain_loss": plain_loss, "loss_rel_diff": rel, "parameters_compared": len(grads),
+          "worst_gradient_err_over_tol": worst, "worst_parameter": worst_name,
+          "launches": counts})
+    check(rel <= 1e-5, f"coati2_fp32_vs_plain: loss {loss} against {plain_loss}")
+
+
 def _profile(fn, label, wall_s, top=12):
     """Device time by kernel over one call of fn (torch.profiler): the top
     kernels and every kernel of the port's own; and the card's idle share
@@ -1605,10 +2016,16 @@ def main() -> int:
     phase_k1_positions(model.config.n_layer_xformer)
     lap("k1_positions")
     del model
+    paths["coati2"] = phase_coati2()
+    lap("coati2")
     paths["train"] = phase_train()
     lap("train")
     phase_train_fp32_vs_plain()
     lap("train_fp32_vs_plain")
+    paths["coati2_train"] = phase_coati2_train()
+    lap("coati2_train")
+    phase_coati2_fp32_vs_plain()
+    lap("coati2_fp32_vs_plain")
     emit({"phase": "launches", "by_path": paths})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -1,18 +1,17 @@
 """RDKit quarantine module.
 
-The port's own copy of coati_tpu/chem/rdkit_support.py, for what the
-training transform and the point path need: canon_smiles,
-canonicalize_or_self, is_valid_smiles, permute_smiles, identical_canonsmi,
-mol_to_morgan and mol_to_atoms_coords. RDKit is an optional host-side
-dependency: with it these call RDKit as coati_tpu does, without it they run
-the in-tree chemistry (chem/graph_canon.py, chem/selfies_lite.py,
-chem/fingerprints.py, chem/conformers.py). sim_mol, mol_standardize and
-mol_properties need chemistry modules the port has not copied yet
-(chem/standardize.py, chem/crippen.py, chem/qed.py, module M6c) and raise.
+The port's own copy of coati_tpu/chem/rdkit_support.py: the same code and the
+same results, importing nothing of the JAX package.
+
+All RDKit usage in the framework goes through here (mirroring the
+reference's containers/rdkit_utils.py quarantine pattern). RDKit is an
+optional host-side dependency: every function either works without it
+(documented fallback) or raises a clear ImportError.
 
 Parity targets: coati/containers/rdkit_utils.py (works_on_smiles :32,
-canon_smiles :82, identical_canonsmi :104, permute_smiles :115,
-mol_to_morgan :140, mol_to_atoms_coords :162).
+canon_smiles :82, sim_mol :94, identical_canonsmi :104, permute_smiles
+:115, mol_to_morgan :140, mol_to_atoms_coords :162, mol_standardize :226,
+mol_properties :249, read_sdf :222, draw helpers :110,123).
 """
 
 from __future__ import annotations
@@ -20,37 +19,54 @@ from __future__ import annotations
 import functools
 import random
 import re
-from typing import Any, Dict
+from operator import itemgetter
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
 try:  # optional host-side dependency
-    from rdkit import Chem
+    import rdkit
+    from rdkit import Chem, DataStructs
+    from rdkit.Chem import (
+        Crippen,
+        Descriptors,
+        Draw,
+        Lipinski,
+        PandasTools,
+        rdMolDescriptors,
+    )
     from rdkit.Chem.AllChem import (
         EmbedMolecule,
         EmbedMultipleConfs,
         GetMorganFingerprintAsBitVect,
     )
+    from rdkit.Chem.MolStandardize.rdMolStandardize import Uncharger
     from rdkit.Chem.rdForceFieldHelpers import MMFFOptimizeMoleculeConfs
+    from rdkit.Chem.SaltRemover import SaltRemover
 
     HAS_RDKIT = True
 except ImportError:
     HAS_RDKIT = False
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: it comes with module M6c (chem/standardize.py, "
-        "chem/crippen.py, chem/qed.py and the similarity tools)"
-    )
-
-
 def require_rdkit(what: str = "this operation") -> None:
     if not HAS_RDKIT:
         raise ImportError(
             f"RDKit is required for {what} but is not installed. "
-            "Install rdkit, or pass SMILES, which the in-tree chemistry takes."
+            "Install rdkit, or use the *_or_fallback variants where provided."
         )
+
+
+def rdkit_version() -> str:
+    require_rdkit("rdkit_version")
+    return rdkit.__version__
+
+
+def disable_logger() -> None:
+    if HAS_RDKIT:
+        from rdkit import RDLogger
+
+        RDLogger.DisableLog("rdApp.*")
 
 
 def works_on_smiles(raise_on_failure: bool):
@@ -242,9 +258,26 @@ def identical_canonsmi(smi1: str, smi2: str, use_chiral: int = 1) -> bool:
 
 
 def sim_mol(mol1, mol2) -> float:
-    """ECFP4/2048 Tanimoto similarity (reference rdkit_utils.py:94): not
-    ported yet."""
-    raise _not_ported("sim_mol")
+    """ECFP4/2048 Tanimoto similarity (reference rdkit_utils.py:94).
+    Offline the in-tree circular fingerprint computes it for SMILES
+    inputs (chem/fingerprints.py; bit layout differs from RDKit but
+    the similarity structure is what callers consume)."""
+    if not HAS_RDKIT:
+        if isinstance(mol1, str) and isinstance(mol2, str):
+            from coati_tpu_torch.chem.fingerprints import smiles_similarity
+
+            return smiles_similarity(mol1, mol2)
+        require_rdkit("sim_mol on Mol objects")
+    return _sim_mol_rdkit(mol1, mol2)
+
+
+@works_on_smiles(raise_on_failure=True)
+def _sim_mol_rdkit(mol1, mol2) -> float:
+    if isinstance(mol2, str):
+        mol2 = Chem.MolFromSmiles(mol2)
+    fp1 = rdMolDescriptors.GetMorganFingerprintAsBitVect(mol1, 2, 2048)
+    fp2 = rdMolDescriptors.GetMorganFingerprintAsBitVect(mol2, 2, 2048)
+    return DataStructs.TanimotoSimilarity(fp1, fp2)
 
 
 def mol_to_morgan(
@@ -292,7 +325,7 @@ def mol_to_atoms_coords(
 ):
     """ETKDG conformer embed (+ optional MMFF94s optimize, lowest-energy
     conformer) -> (atoms, coords[, adjacency][, morgan][, energy]).
-    Offline (round 4): the in-tree distance-geometry embedder
+    Offline: the in-tree distance-geometry embedder
     (chem/conformers.py — bounds + triangle smoothing + metrized MDS +
     refinement) runs for SMILES inputs, so the 3D/point-encoder path
     works from raw SMILES without rdkit; `optimize` selects the
@@ -369,11 +402,104 @@ def _mol_to_atoms_coords_rdkit(
 
 def mol_standardize(mol):
     """Strip salts, keep the largest fragment, neutralize (reference
-    rdkit_utils.py:227-248): not ported yet."""
-    raise _not_ported("mol_standardize")
+    rdkit_utils.py:227-248). Offline the in-tree standardizer
+    (chem/standardize.py: canonical salt matching + largest fragment +
+    Uncharger H-shuffle) handles SMILES inputs and returns a SMILES
+    string; with rdkit the original Mol pipeline runs."""
+    if not HAS_RDKIT:
+        if not isinstance(mol, str):
+            require_rdkit("mol_standardize on Mol objects")
+        from coati_tpu_torch.chem.standardize import standardize_smiles
+
+        return standardize_smiles(mol)
+    return _mol_standardize_rdkit(mol)
+
+
+@works_on_smiles(raise_on_failure=False)
+def _mol_standardize_rdkit(mol):
+    res = SaltRemover().StripMol(mol, dontRemoveEverything=True)
+    if res.GetNumAtoms():
+        frags = sorted(
+            ((x.GetNumAtoms(), x) for x in Chem.GetMolFrags(res, asMols=True)),
+            key=itemgetter(0),
+            reverse=True,
+        )
+        if frags:
+            return Uncharger().uncharge(frags[0][1])
+        return None
+    print(f'Failed salt removal: "{Chem.MolToSmiles(mol)}"')
+    return None
 
 
 def mol_properties(mol) -> Dict[str, Any]:
-    """Descriptor dict (reference rdkit_utils.py:249-265): not ported
-    yet."""
-    raise _not_ported("mol_properties")
+    """Descriptor dict (reference rdkit_utils.py:249-265). Offline the
+    in-tree engines compute the full set: chem/descriptors.py for the
+    counts/TPSA/weights, chem/crippen.py for MolLogP (Wildman-Crippen
+    tables over the in-tree SMARTS matcher), chem/qed.py for QED."""
+    if not HAS_RDKIT:
+        if not isinstance(mol, str):
+            require_rdkit("mol_properties on Mol objects")
+        from coati_tpu_torch.chem.crippen import mol_logp
+        from coati_tpu_torch.chem.descriptors import molecular_descriptors
+        from coati_tpu_torch.chem.qed import qed
+
+        try:
+            out = dict(molecular_descriptors(mol))
+        except Exception:  # noqa: BLE001
+            return None
+        # MolLogP/QED run per-key: a molecule the descriptor engine
+        # handles but the SMARTS/kekulize path trips on (EncoderError in
+        # aromaticity) keeps its count/TPSA conditioning tokens and
+        # loses only the failing keys.
+        try:
+            out["MolLogP"] = mol_logp(mol)
+        except Exception:  # noqa: BLE001
+            pass
+        try:
+            out["QED"] = qed(mol)
+        except Exception:  # noqa: BLE001
+            pass
+        return out
+    return _mol_properties_rdkit(mol)
+
+
+@works_on_smiles(raise_on_failure=False)
+def _mol_properties_rdkit(mol) -> Dict[str, Any]:
+    return {
+        "MolWt": Descriptors.MolWt(mol),
+        "TPSA": Descriptors.TPSA(mol),
+        "FractionCSP3": Lipinski.FractionCSP3(mol),
+        "HeavyAtomCount": Lipinski.HeavyAtomCount(mol),
+        "NumAliphaticRings": Lipinski.NumAliphaticRings(mol),
+        "NumAromaticRings": Lipinski.NumAromaticRings(mol),
+        "NumHAcceptors": Lipinski.NumHAcceptors(mol),
+        "NumHDonors": Lipinski.NumHDonors(mol),
+        "NumHeteroatoms": Lipinski.NumHeteroatoms(mol),
+        "NumRotatableBonds": Lipinski.NumRotatableBonds(mol),
+        "NumSaturatedRings": Lipinski.NumSaturatedRings(mol),
+        "RingCount": Lipinski.RingCount(mol),
+        "MolLogP": Crippen.MolLogP(mol),
+    }
+
+
+def read_sdf(sdf: Any):
+    require_rdkit("read_sdf")
+    return PandasTools.LoadSDF(sdf, smilesName="SMILES")
+
+
+# -------------------------------------------------------------- drawing
+
+
+@works_on_smiles(raise_on_failure=True)
+def draw_mol(mol, size=(300, 300)):
+    return Draw.MolToImage(mol, size=size)
+
+
+def draw_smi_grid(smis: List[str], mols_per_row=5, sub_img_size=(300, 300), legends=None):
+    require_rdkit("draw_smi_grid")
+    return Draw.MolsToGridImage(
+        [Chem.MolFromSmiles(s) for s in smis],
+        molsPerRow=mols_per_row,
+        subImgSize=sub_img_size,
+        legends=legends,
+    )

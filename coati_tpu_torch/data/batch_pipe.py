@@ -129,3 +129,21 @@ def batch_rows(
         yield xform_routine(
             stack_batch(batch, return_coords=True, pad_to_bucket=pad_to_bucket)
         )
+
+
+class SmilesRows:
+    """A dataset of SMILES alone, as the trainers take one: rows with only
+    a 'smiles' column, batched in the given order, so that the transform
+    computes everything else (COATI2's properties among it)."""
+
+    summary = {"dataset_type": "smiles_rows"}
+
+    def __init__(self, smiles: Iterable[str]):
+        self.smiles = list(smiles)
+
+    def get_data_pipe(self, batch_size: int = 8, partition: str = "train",
+                      required_fields: Sequence[str] = (),
+                      xform_routine: Callable = lambda x: x, **kw) -> Iterator[Dict]:
+        return batch_rows(({"smiles": s} for s in self.smiles), batch_size=batch_size,
+                          partition="raw", xform_routine=xform_routine,
+                          required_fields=["smiles"])

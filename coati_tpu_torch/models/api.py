@@ -3,7 +3,7 @@
 The public surface of coati_tpu/models/api.py (itself the reference
 e3gnn_smiles_clip_e2e's), on PyTorch:
 
-    model, tokenizer = load_e3gnn_smiles_clip_e2e(doc_path)   # io.py
+    model, tokenizer = load_e3gnn_smiles_clip_e2e(doc_path)   # io.py; COATI2: load_coati2
     h = model.encode_tokens(tokens, tokenizer)                 # (B, D)
     h = model.encode_points(atoms, coords)                     # (B, D)
     smiles = model.hclip_to_2d_batch(h, tokenizer, noise_scale=0.3)
@@ -24,9 +24,9 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from coati_tpu_torch.models import coati
-from coati_tpu_torch.models.coati import CoatiConfig, CoatiModel
 from coati_tpu_torch.models.sampler import auto_stage_widths, generate_tokens
 from coati_tpu_torch.ops.layers import cast_floats
 from coati_tpu_torch.tokenizers.trie_tokenizer import TrieTokenizer
@@ -36,10 +36,15 @@ from coati_tpu_torch.tokenizers.trie_tokenizer import TrieTokenizer
 LIKELIHOOD_CHUNK = 64
 
 
-class COATI:
-    """Composite CLIP model: parameters + config + entry points."""
+class InjectedDecoder:
+    """What COATI and COATI2 share: an nn.Module of parameters on a device,
+    its compute-dtype copy, the host noise and device sampling streams, and
+    decoding from an embedding injected over [UNK] behind a
+    '[CLIP][UNK]...' prefix. A subclass says how tokens become an
+    embedding (`_encode`) and an embedding the injected token
+    (`_to_token`)."""
 
-    def __init__(self, params: CoatiModel, config: CoatiConfig, seed: int = 0):
+    def __init__(self, params: nn.Module, config, seed: int = 0):
         self.params = params
         self.config = config
         self.embed_dim = config.embed_dim
@@ -65,32 +70,23 @@ class COATI:
     def _tokens(self, token_indices) -> torch.Tensor:
         return torch.as_tensor(np.asarray(token_indices), dtype=torch.long, device=self.device)
 
-    # ------------------------------------------------------------ encode
-    @torch.no_grad()
-    def encode_tokens(self, token_indices, tokenizer: TrieTokenizer) -> torch.Tensor:
-        """(B, T) int tokens -> (B, embed_dim) hclip, on the model's device."""
-        return coati.encode_tokens(
-            self._compute, self.config, self._tokens(token_indices), tokenizer.stop_token
-        )
+    def _encode(self, tokens: torch.Tensor, tokenizer: TrieTokenizer) -> torch.Tensor:
+        """(B, T) tokens on the device -> (B, embed_dim) embeddings."""
+        raise NotImplementedError
+
+    def _to_token(self, h: torch.Tensor) -> torch.Tensor:
+        """Embeddings in the compute dtype -> the injected tokens."""
+        raise NotImplementedError
 
     @torch.no_grad()
-    def encode_points(self, atoms, coords) -> torch.Tensor:
-        """(B, N) atomic numbers (0 = padding) and (B, N, 3) coordinates ->
-        (B, embed_dim) hclip, on the model's device."""
-        atoms = torch.as_tensor(np.asarray(atoms).astype(np.int64), device=self.device)
-        coords = torch.as_tensor(np.asarray(coords, dtype=np.float32), device=self.device)
-        return coati.encode_points(self._compute, self.config, atoms, coords)
-
-    @torch.no_grad()
-    def _clip_token(self, h_clip) -> torch.Tensor:
-        """hclip (tensor or array) -> the injected clip token, in the
+    def _clip_token(self, h) -> torch.Tensor:
+        """An embedding (tensor or array) -> the injected token, in the
         compute dtype on the model's device."""
         dtype = self.config.xformer_config.compute_dtype
-        if not isinstance(h_clip, torch.Tensor):
-            h_clip = torch.tensor(np.asarray(h_clip, dtype=np.float32))
-        return coati.clip_to_special_token(self._compute, h_clip.to(self.device, dtype))
+        if not isinstance(h, torch.Tensor):
+            h = torch.tensor(np.asarray(h, dtype=np.float32))
+        return self._to_token(h.to(self.device, dtype))
 
-    # ---------------------------------------------------------- generate
     def _decode(
         self,
         h_token: torch.Tensor,
@@ -126,10 +122,17 @@ class COATI:
         )
         return out.cpu().numpy()
 
+    # ------------------------------------------------------------ encode
     @torch.no_grad()
-    def hclip_to_2d_batch(
+    def encode_tokens(self, token_indices, tokenizer: TrieTokenizer) -> torch.Tensor:
+        """(B, T) int tokens -> (B, embed_dim) embeddings, on the model's device."""
+        return self._encode(self._tokens(token_indices), tokenizer)
+
+    # ---------------------------------------------------------- generate
+    @torch.no_grad()
+    def vectors_to_2d_batch(
         self,
-        h_clip,
+        h,
         tokenizer: TrieTokenizer,
         fill_in_from: str = "[SMILES]",
         noise_scale: float = 0.0,
@@ -140,16 +143,18 @@ class COATI:
         return_tokens: bool = False,
         top_p: Optional[float] = None,
     ):
-        """Decode a batch of hclip vectors to SMILES. top_p: optional
-        nucleus truncation within the top-k candidates; None = plain top-k."""
-        if isinstance(h_clip, torch.Tensor):
-            h_clip = h_clip.detach().float().cpu().numpy()
-        h_clip = np.asarray(h_clip, dtype=np.float32)
+        """Decode a batch of embeddings (tensor or array) to SMILES behind
+        '[CLIP][UNK]' + fill_in_from, with host noise of `noise_scale` added
+        first. top_p: optional nucleus truncation within the top-k
+        candidates; None = plain top-k."""
+        if isinstance(h, torch.Tensor):
+            h = h.detach().float().cpu().numpy()
+        h = np.asarray(h, dtype=np.float32)
         if noise_scale > 0:
-            h_clip = h_clip + self._sample_noise(noise_scale, h_clip.shape)
+            h = h + self._sample_noise(noise_scale, h.shape)
         suffstr = "[SUFFIX][MIDDLE]" if do_suffix else ""
         toks = self._decode(
-            self._clip_token(h_clip), tokenizer,
+            self._clip_token(h), tokenizer,
             "[CLIP][UNK]" + fill_in_from + suffstr, inv_temp, k, None, top_p=top_p,
         )
         smiles = tokenizer.decode_batch(toks, special=keep_special)
@@ -157,9 +162,9 @@ class COATI:
             return smiles, [list(map(int, row)) for row in toks]
         return smiles
 
-    def hclip_to_2d(
+    def vector_to_2d(
         self,
-        h_clip,
+        h,
         tokenizer: TrieTokenizer,
         fill_in_from: str = "[SMILES]",
         noise_scale: float = 0.0,
@@ -168,8 +173,8 @@ class COATI:
         k: int = 100,
     ) -> str:
         """Single-vector decode."""
-        h = np.asarray(h_clip, np.float32).reshape(1, -1)
-        return self.hclip_to_2d_batch(
+        h = np.asarray(h, np.float32).reshape(1, -1)
+        return self.vectors_to_2d_batch(
             h, tokenizer, fill_in_from, noise_scale, inv_temp, k, do_suffix
         )[0]
 
@@ -187,23 +192,43 @@ class COATI:
         total_len: Optional[int] = None,
     ):
         """Embed -> decode round trip: tokenized SMILES in, re-generated
-        SMILES (and optionally the hclip embeddings, numpy) out, with no
-        host hop between the encode and the decode."""
-        tokens = self._tokens(token_indices)
-        h = coati.encode_tokens(self._compute, self.config, tokens, tokenizer.stop_token)
+        SMILES (and optionally the embeddings, numpy) out, with no host hop
+        between the encode and the decode; conditioned prefixes go through
+        `fill_in_from`."""
+        h = self._encode(self._tokens(token_indices), tokenizer)
+        h_in = h
         if noise_scale > 0:
             noise = self._fused_noise(noise_scale, h.shape[0])
             h_in = h + torch.as_tensor(noise, device=self.device).to(h.dtype)
-        else:
-            h_in = h
         toks = self._decode(
-            coati.clip_to_special_token(self._compute, h_in), tokenizer,
-            "[CLIP][UNK]" + fill_in_from, inv_temp, k, total_len,
+            self._to_token(h_in), tokenizer, "[CLIP][UNK]" + fill_in_from, inv_temp, k,
+            total_len,
         )
         smiles = tokenizer.decode_batch(toks, special=keep_special)
         if return_embeddings:
             return smiles, h.float().cpu().numpy()
         return smiles
+
+
+class COATI(InjectedDecoder):
+    """Composite CLIP model: parameters + config + entry points."""
+
+    def _encode(self, tokens: torch.Tensor, tokenizer: TrieTokenizer) -> torch.Tensor:
+        return coati.encode_tokens(self._compute, self.config, tokens, tokenizer.stop_token)
+
+    def _to_token(self, h: torch.Tensor) -> torch.Tensor:
+        return coati.clip_to_special_token(self._compute, h)
+
+    @torch.no_grad()
+    def encode_points(self, atoms, coords) -> torch.Tensor:
+        """(B, N) atomic numbers (0 = padding) and (B, N, 3) coordinates ->
+        (B, embed_dim) hclip, on the model's device."""
+        atoms = torch.as_tensor(np.asarray(atoms).astype(np.int64), device=self.device)
+        coords = torch.as_tensor(np.asarray(coords, dtype=np.float32), device=self.device)
+        return coati.encode_points(self._compute, self.config, atoms, coords)
+
+    hclip_to_2d_batch = InjectedDecoder.vectors_to_2d_batch
+    hclip_to_2d = InjectedDecoder.vector_to_2d
 
     def points_to_2d_batch(
         self,

@@ -1,7 +1,7 @@
 """Weights carried into the port.
 
-Two sources, one target: the port's `CoatiModel`, whose state-dict keys
-and (out, in) weight layout are the reference's.
+Two sources, one target: the port's `CoatiModel` (and `Coati2Model`),
+whose state-dict keys and (out, in) weight layout are the reference's.
 
   * `state_from_coati_tpu` turns the JAX package's parameters, as the
     nested dict of numpy arrays its documents hold (coati_tpu
@@ -12,6 +12,9 @@ and (out, in) weight layout are the reference's.
     so that gradients compare name by name.
   * `load_reference_state_dict` loads a reference-format flat state dict
     (torch tensors or numpy arrays, optional 'module.' prefixes) strictly.
+  * For COATI2: `coati2_state_from_coati_tpu` carries coati_tpu's
+    Coati2Params (or their gradients), and `convert_coati2` loads a
+    reference COATI_Smiles_Inference state dict.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 from coati_tpu_torch.models.coati import CoatiConfig, CoatiModel
+from coati_tpu_torch.models.coati2 import Coati2Config, Coati2Model
 
 _COATI_KWARG_FIELDS = (
     "n_layer_e3gnn",
@@ -194,7 +198,7 @@ def gradients_from_coati_tpu(
     return state_from_coati_tpu(nested, old_architecture)
 
 
-def load_reference_state_dict(model: CoatiModel, state_dict: Mapping[str, object]) -> CoatiModel:
+def load_reference_state_dict(model: torch.nn.Module, state_dict: Mapping[str, object]):
     """Load a reference-format flat state dict into `model`, strictly."""
     sd = {k: _tensor(v) for k, v in strip_module_prefix(state_dict).items()}
     model.load_state_dict(sd, strict=True)
@@ -211,3 +215,67 @@ def model_from_state(cfg: CoatiConfig, state_dict: Mapping[str, object]):
         fp_map=fp_map_from_keys(sd),
     )
     return load_reference_state_dict(CoatiModel(cfg), sd), cfg
+
+
+# ------------------------------------------------------------------ COATI2
+
+_COATI2_KWARG_FIELDS = (
+    "n_layer_xformer",
+    "n_hidden_xformer",
+    "embed_dim",
+    "n_head",
+    "n_seq",
+    "mlp_dropout",
+    "enc_to_coati",
+    "n_direct_clr",
+    "n_tok",
+    "biases",
+)
+
+
+def coati2_config_from_model_kwargs(model_kwargs: Mapping[str, object], **overrides) -> Coati2Config:
+    """Coati2Config from a document's stored constructor kwargs."""
+    kwargs = {k: model_kwargs[k] for k in _COATI2_KWARG_FIELDS if k in model_kwargs}
+    kwargs.update(overrides)
+    return Coati2Config(**kwargs)
+
+
+def _swiglu_state(p: Mapping, prefix: str, idx=(0, 2, 4)) -> Dict[str, torch.Tensor]:
+    """coati_tpu SwigluResnetParams -> LayerNorm, Linear, Linear at the
+    given Sequential indices under `prefix`."""
+    ln, fc, out = idx
+    return {
+        f"{prefix}.{ln}.weight": _tensor(p["ln_scale"]),
+        f"{prefix}.{ln}.bias": _tensor(p["ln_bias"]),
+        f"{prefix}.{fc}.weight": _lin(p["w1"]),
+        f"{prefix}.{fc}.bias": _tensor(p["b1"]),
+        f"{prefix}.{out}.weight": _lin(p["w2"]),
+        f"{prefix}.{out}.bias": _tensor(p["b2"]),
+    }
+
+
+def coati2_state_from_coati_tpu(
+    nested: Mapping, enc_to_coati: str = "swiglu_resnet"
+) -> Dict[str, torch.Tensor]:
+    """coati_tpu Coati2Params (the nested numpy dict of params_to_state) ->
+    the flat state dict of a Coati2Model. A linear smiles_to_coati head is
+    recognized by its fields; `enc_to_coati` tells the two SwiGLU heads
+    apart, whose fields are the same. Carries a gradient pytree alike."""
+    sd = {f"xformer.{k}": v for k, v in transformer_state_from_coati_tpu(nested["xformer"]).items()}
+    head = nested["smiles_to_coati"]
+    if "w" in head:  # ProjLinearParams: Sequential(LayerNorm, Linear)
+        sd.update(_projection_state(head, False, "smiles_to_coati"))
+    elif enc_to_coati == "swiglu_mlp":  # Sequential(LN, Linear, SwiGLU, Linear)
+        sd.update(_swiglu_state(head, "smiles_to_coati", (0, 1, 3)))
+    elif enc_to_coati == "swiglu_resnet":
+        sd.update(_swiglu_state(head, "smiles_to_coati.net"))
+    else:
+        raise ValueError(f"enc_to_coati {enc_to_coati!r} does not fit a SwiGLU head")
+    sd.update(_swiglu_state(nested["coati_to_token"], "coati_to_token.net"))
+    return sd
+
+
+def convert_coati2(state_dict: Mapping[str, object], cfg: Coati2Config) -> Coati2Model:
+    """A reference COATI_Smiles_Inference state dict (simple_coati2) loaded
+    strictly into a Coati2Model."""
+    return load_reference_state_dict(Coati2Model(cfg), state_dict)

@@ -8,9 +8,10 @@ optimizer, model_kwargs, ...}. Two formats of `model` load:
   * the reference's: a flat state dict with dotted keys, of torch tensors
     (decoded onto the CPU) or numpy arrays.
 
-Both become the port's CoatiModel on the requested device. The port's own
-training checkpoints (`serialize_model`) are written in the second format,
-with numpy arrays, which both packages' loaders read.
+Both become the port's CoatiModel (or, through `load_coati2`, its
+Coati2Model) on the requested device. The port's own training checkpoints
+(`serialize_model`) are written in the second format, with numpy arrays,
+which both packages' loaders read.
 """
 
 from __future__ import annotations
@@ -24,8 +25,12 @@ import torch
 
 from coati_tpu_torch.common.util import resolve_device
 from coati_tpu_torch.models.api import COATI
+from coati_tpu_torch.models.coati2 import COATI2
 from coati_tpu_torch.models.convert import (
+    coati2_config_from_model_kwargs,
+    coati2_state_from_coati_tpu,
     config_from_model_kwargs,
+    convert_coati2,
     model_from_state,
     projection_is_old_architecture,
     state_from_coati_tpu,
@@ -90,15 +95,53 @@ def load_e3gnn_smiles_clip_e2e(
     model.eval()
 
     tokenizer_vocab = doc["train_args"]["tokenizer_vocab"]
-    if "selfies" in tokenizer_vocab:
-        raise NotImplementedError(
-            f"vocab {tokenizer_vocab!r}: SELFIES tokenization is not ported yet"
-        )
     tokenizer = TrieTokenizer(n_seq=cfg.n_seq, **get_vocab(tokenizer_vocab))
+    if "selfies" in tokenizer_vocab:
+        # SELFIES documents (e.g. the published selfies_barlow) rebind
+        # pre_tokenize to encode SMILES to SELFIES first (reference
+        # io/coati.py:90-92)
+        from coati_tpu_torch.tokenizers.selfies_support import to_selfies_tokenizer
+
+        tokenizer = to_selfies_tokenizer(tokenizer)
     if print_debug:
         print("NTokens: ", doc.get("n_toks_processed"))
         print("Model kwargs: ", model_kwargs)
     return COATI(model, cfg), tokenizer
+
+
+def coati2_state_from_document(doc: dict, enc_to_coati: str) -> Dict[str, torch.Tensor]:
+    """A COATI2 document's model as the port's flat state dict: the
+    reference's (and the port's own) flat dotted keys as they are, or
+    coati_tpu's nested Coati2Params carried across."""
+    sd = strip_module_prefix(doc["model"])
+    if any("." in k for k in sd):
+        return sd
+    return coati2_state_from_coati_tpu(sd, enc_to_coati)
+
+
+def load_coati2(
+    doc_url: Union[str, dict],
+    device=None,
+    freeze: bool = True,
+    old_architecture: bool = False,
+    force_cpu: bool = False,
+) -> Tuple[COATI2, TrieTokenizer]:
+    """Load a COATI2 model document (a path, or the loaded dict) ->
+    (COATI2, TrieTokenizer), on `device`: the CUDA card unless the caller
+    names another (force_cpu names the CPU); with no card and no device
+    this raises. Signature of the reference loader
+    (simple_coati2/io.py:21-84); `old_architecture` is accepted for it and
+    has no COATI2 meaning."""
+    del old_architecture
+    device = resolve_device("cpu" if force_cpu else device)
+    doc = doc_url if isinstance(doc_url, dict) else load_model_doc(doc_url)
+    cfg = coati2_config_from_model_kwargs(doc["model_kwargs"])
+    model = convert_coati2(coati2_state_from_document(doc, cfg.enc_to_coati), cfg).to(device)
+    if freeze:
+        model.requires_grad_(False)
+    model.eval()
+    tokenizer = TrieTokenizer(n_seq=cfg.n_seq, **get_vocab(doc["train_args"]["tokenizer_vocab"]))
+    return COATI2(model, cfg), tokenizer
 
 
 # ------------------------------------------------------- our checkpoints

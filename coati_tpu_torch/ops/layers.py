@@ -1,8 +1,8 @@
 """Elementary neural-net ops shared across models.
 
 Plain functions on tensors, numerics of coati_tpu/ops/layers.py: LayerNorm
-and instance norm with eps 1e-5 and statistics in float32, tanh-approximated
-GELU. Linear weights use PyTorch's (out_features, in_features) layout.
+and instance norm with eps 1e-5 and statistics in float32, RMSNorm,
+tanh-approximated GELU and the SwiGLU gate. Linear weights use PyTorch's (out_features, in_features) layout.
 """
 
 from __future__ import annotations
@@ -54,6 +54,13 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torc
     return y.to(x.dtype)
 
 
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last axis, stats in float32."""
+    xf = x.float()
+    y = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    return (y * scale.float()).to(x.dtype)
+
+
 def instance_norm_lastdim(x: torch.Tensor) -> torch.Tensor:
     """Affine-free normalization over the last axis, stats in float32 with
     the biased variance (how the reference applies torch InstanceNorm1d to
@@ -74,3 +81,11 @@ def linear(
 ) -> torch.Tensor:
     """x @ w.T (+ b); w is stored (out_features, in_features)."""
     return F.linear(x, w, b)
+
+
+def swiglu(x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU gate over a doubled last dim: silu(gate) * value, the value
+    the first half and the gate the second (the reference's
+    simple_coati2/transformer_only.py:37-40)."""
+    value, gate = x.chunk(2, dim=-1)
+    return F.silu(gate) * value

@@ -94,3 +94,22 @@ def coati_train_step_model_flops(
         + egnn_pass_flops(n_layer_e3gnn, n_hidden_e3nn, batch, natoms)
     )
     return 3.0 * fwd
+
+
+def coati2_train_step_model_flops(
+    *,
+    n_layer_xformer: int,
+    n_hidden_xformer: int,
+    n_tok: int,
+    batch: int,
+    seq: int,
+) -> float:
+    """fwd+bwd model FLOPs of one COATI2 train step
+    (training/train_coati2.py: the directCLR two-view encode is one
+    doubled-batch trunk pass, plus the AR pass with logits)."""
+    fwd = transformer_pass_flops(
+        n_layer_xformer, n_hidden_xformer, 2 * batch, seq
+    ) + transformer_pass_flops(
+        n_layer_xformer, n_hidden_xformer, batch, seq, n_tok=n_tok, logits=True
+    )
+    return 3.0 * fwd

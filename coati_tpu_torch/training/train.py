@@ -160,6 +160,8 @@ def make_epoch_metrics_processor(
     epoch: int,
     totals: dict,
     get_counters,
+    clip_metric: str = "clip_loss",
+    clip_label: str = "clip_l",
     log_clip: bool = True,
     loss_arr=None,
 ):
@@ -168,6 +170,8 @@ def make_epoch_metrics_processor(
     for the device), appends the JSONL offline-loss records, prints the
     periodic line, and accumulates totals["loss"]/["count"]. `get_counters`
     returns the loop's live (n_toks, ng, t0) for the log tags and rates;
+    `clip_metric` and `clip_label` name the contrastive loss in the log and
+    the printed line (COATI2 logs its directCLR loss as "clr_loss");
     `loss_arr` collects (loss, ar_loss, clip_loss) per step and smooths the
     printed loss over 10 steps."""
 
@@ -180,7 +184,7 @@ def make_epoch_metrics_processor(
             tags = {"n_toks": n_toks}
             records = [("batch_losses", "batch_loss", loss), ("ar_losses", "ar_loss", ar)]
             if log_clip:
-                records.append(("clip_losses", "clip_loss", cl))
+                records.append(("clip_losses", clip_metric, cl))
             for store, key, value in records:
                 offline_losses[store].append(
                     logger.log_metric(f"{partition}_{key}", value, dataset_epoch=epoch, step=j,
@@ -192,7 +196,7 @@ def make_epoch_metrics_processor(
             print(
                 prefix
                 + f"Epoch {epoch} \t it {j} \t toks {n_toks // 10**6}m "
-                f"\t ar_l: {ar:.2f}, clip_l {cl:.6f}, "
+                f"\t ar_l: {ar:.2f}, {clip_label} {cl:.6f}, "
                 f"loss {sum(recent) / len(recent):.4f} \t "
                 f"grads_ps {ng / max(time.time() - t0, 1e-6):.4f}"
             )

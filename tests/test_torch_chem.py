@@ -277,9 +277,9 @@ def test_graph_tokens_equal_coati_tpu_s(sample):
 
 
 def test_rdkit_support_offline_paths_equal_coati_tpu_s(sample, cold_cache):
-    """Without RDKit: the seven ported functions give coati_tpu's answers,
-    including its fallbacks for grammar the parser does not take; the rest
-    raise and say that they wait for module M6c."""
+    """Without RDKit: the offline paths give coati_tpu's answers, including
+    its fallbacks for grammar the parser does not take; the functions that
+    need an RDKit Mol raise as coati_tpu's do."""
     assert not t_rd.HAS_RDKIT
     odd = ["C1CC", "*C", "CC(", "", "[C@TH1](F)(Cl)Br", "BAD", "c1ccccc1.[Na+]"]
     for s in sample[:100] + STEREO + odd:
@@ -292,9 +292,12 @@ def test_rdkit_support_offline_paths_equal_coati_tpu_s(sample, cold_cache):
                     == j_rd.identical_canonsmi(a, b, chiral))
     assert t_rd.identical_canonsmi("N[C@@H](C)C(=O)O", "C[C@H](N)C(=O)O")
     assert t_rd.mol_to_atoms_coords("C1CC") is None is j_rd.mol_to_atoms_coords("C1CC")
-    for fn in (lambda: t_rd.sim_mol("CCO", "CCN"), lambda: t_rd.mol_standardize("CCO"),
-               lambda: t_rd.mol_properties("CCO")):
-        with pytest.raises(NotImplementedError, match="M6c"):
+    assert t_rd.sim_mol("CCO", "CCN") == j_rd.sim_mol("CCO", "CCN")
+    assert t_rd.mol_standardize("CCO.[Na+].[Cl-]") == j_rd.mol_standardize("CCO.[Na+].[Cl-]")
+    assert t_rd.mol_properties("CCO") == j_rd.mol_properties("CCO")
+    for fn in (lambda: t_rd.read_sdf("x.sdf"), lambda: t_rd.draw_smi_grid(["CCO"]),
+               lambda: t_rd.mol_properties(object())):
+        with pytest.raises(ImportError, match="RDKit"):
             fn()
 
 
