@@ -113,7 +113,35 @@ number is taken.
     float32 step at full width (4 layers), batch 32, through the kernels
     and through the plain versions: loss within 1e-5 relative, every
     gradient within 1e-4 x max(1, max |plain|).
- 8. report: the card's name and power limit, one `kernels` JSON line, and
+ 8. dataset_pool (host only): the 1,024 fixture molecules written as 4
+    pickle shards of COATI_dataset (rows cut to their atoms, source
+    geom_drugs) and read back: rows per partition; then the grande recipe's
+    clip_ar_xform (n_seq 80, batch 160) over the raw batches, serially and
+    through XformWorkerPool at 1, 2 and cores - 2 workers (host caches
+    cleared first), samples/s beside the trainer's mol/s of phase train,
+    and the peak count of batches in flight, at most read_ahead + workers.
+ 9. train_restart: train_autoencoder with the grande recipe in bf16 on that
+    COATI_dataset with orbax_dir, three times over one directory: one epoch
+    with a mid-epoch and an end-of-run checkpoint; the same again, which
+    takes no step and returns run 1's parameters, its checkpoint holding run
+    1's parameters and optimizer state bit for bit; two epochs, resuming at
+    epoch 1 with global_step carried on and every loss finite. The
+    checkpoint's bytes and the save, write and restore seconds; K3, K4, K5f
+    and K5b launches.
+10. lora: the trained document at full width, rank-8 adapters, 20 AR steps
+    of batch 64 in bf16 over bench.py's and the corpus's SMILES padded to
+    n_seq 250 (K2 forward, its replayed backward): the loss of a fixed batch
+    falls, the base weights do not move; the merged model written as a
+    document and reloaded encodes as the merged model does, bit for bit.
+    Then one float32 step through K2 against the plain versions: loss within
+    1e-5 relative, adapter gradients within 1e-4 x max(1, max |plain|).
+11. generative: the trained document in the production setting (bf16,
+    int8 KV cache): bench.py's 16 SMILES embedded and force-decoded (how
+    many come back as their input's canonical SMILES), 4 purified (n_rep
+    128), a closed-form density over the fixture's 1,024 SMILES with 64
+    draws force-decoded (the valid share), one epoch of
+    estimate_density_batchwise at batch 1024; seconds of each.
+12. report: the card's name and power limit, one `kernels` JSON line, and
     as the last line {"ok": true, "device": {...}}.
 
 Every number printed is measured in this run, on this card, except the
@@ -125,6 +153,7 @@ clock that nvidia-smi reports).
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import gzip
 import itertools
@@ -135,6 +164,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -573,7 +603,7 @@ def _messages_bwd_case(d2, w, hm, mm_dtype, gen, label, timed=True):
     return case
 
 
-def _decode_case(b, t, h, dh, pos, q_dtype, kv, gen):
+def _decode_case(b, t, h, dh, pos, q_dtype, kv, gen, timed=True):
     """kv: a cache dtype (float32, bfloat16) or "int8/<scale dtype>"."""
     from coati_tpu_torch.models.transformer import quantize_kv
     from coati_tpu_torch.ops import attention as plain
@@ -614,8 +644,9 @@ def _decode_case(b, t, h, dh, pos, q_dtype, kv, gen):
         "kernel": name, "shape": [b, t, h, dh], "pos": pos, "q_dtype": str(q_dtype)[6:],
         "kv": kv if isinstance(kv, str) else str(kv)[6:],
         "max_abs_err": err, "tol": tol, "repeats": repeats, "ok": err <= tol and repeats,
-        "ms": time_ms(run), "plain_ms": time_ms(run_plain), "bound_ms": bound, "bound_by": by,
-        "library_ms": time_ms(library) if library else None,
+        "ms": time_ms(run) if timed else None,
+        "plain_ms": time_ms(run_plain) if timed else None, "bound_ms": bound, "bound_by": by,
+        "library_ms": time_ms(library) if library and timed else None,
     }
 
 
@@ -708,6 +739,73 @@ def hold_path_shapes(phase, shapes):
     HELD.update(new)
     check(all(c["ok"] for c in cases), f"{phase}: a kernel case at the path's shapes is "
           "outside tolerance")
+
+
+@contextlib.contextmanager
+def record_shapes():
+    """Notes the shapes at which the transformer calls each attention
+    kernel's wrapper, and calls it on: (kernel, B, T, H, Dh, dtype) of
+    every full-sequence call (K5f's also stand for K5b's, which runs at its
+    forward's shapes), and (B, T, H, Dh, q dtype, cache) -> positions of
+    every decode step. The wrappers still count their launches."""
+    from coati_tpu_torch.models import transformer
+
+    full, decode = set(), collections.defaultdict(set)
+
+    def dtype_name(x):
+        return str(x.dtype)[6:]
+
+    def full_call(name, fn):
+        def call(q, k, v):
+            full.add((name, *q.shape, dtype_name(q)))
+            if name == "packed_causal_attention" and q.requires_grad:
+                full.add(("packed_causal_attention_backward", *q.shape, dtype_name(q)))
+            return fn(q, k, v)
+        return call
+
+    def decode_call(fn, quant):
+        def call(q, *cache_and_pos):
+            k, pos = cache_and_pos[0], cache_and_pos[-1]
+            kv = f"int8/{dtype_name(cache_and_pos[1])}" if quant else dtype_name(k)
+            decode[(q.shape[0], k.shape[1], *q.shape[1:], dtype_name(q), kv)].add(int(pos))
+            return fn(q, *cache_and_pos)
+        return call
+
+    saved = {name: getattr(transformer, name) for name in (
+        "flash_causal_attention", "packed_causal_attention", "decode_attention",
+        "decode_attention_quant")}
+    transformer.flash_causal_attention = full_call("flash_causal_attention",
+                                                   saved["flash_causal_attention"])
+    transformer.packed_causal_attention = full_call("packed_causal_attention",
+                                                    saved["packed_causal_attention"])
+    transformer.decode_attention = decode_call(saved["decode_attention"], False)
+    transformer.decode_attention_quant = decode_call(saved["decode_attention_quant"], True)
+    try:
+        yield full, decode
+    finally:
+        for name, fn in saved.items():
+            setattr(transformer, name, fn)
+
+
+def hold_decode_positions(phase, decode):
+    """Holds K1 against its plain version, untimed, at every (B, T, H, Dh,
+    q dtype, cache) a path decoded with and at every position it decoded
+    at; one line for each such shape."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    ok = True
+    for (b, t, h, dh, q_name, kv), positions in sorted(decode.items()):
+        kv_arg = kv if kv.startswith("int8/") else getattr(torch, kv)
+        cases = [_decode_case(b, t, h, dh, pos, getattr(torch, q_name), kv_arg, gen, timed=False)
+                 for pos in sorted(positions)]
+        worst = max(cases, key=lambda c: c["max_abs_err"] / c["tol"])
+        emit({"phase": "kernel", "held_for": phase, "kernel": cases[0]["kernel"],
+              "shape": [b, t, h, dh], "q_dtype": q_name, "kv": kv,
+              "positions": [min(positions), max(positions)], "n_positions": len(positions),
+              "ok": all(c["ok"] for c in cases), "max_abs_err": worst["max_abs_err"],
+              "tol_at_worst": worst["tol"], "worst_pos": worst["pos"],
+              "repeats": all(c["repeats"] for c in cases)})
+        ok = ok and all(c["ok"] for c in cases)
+    check(ok, f"{phase}: K1 at a position the path decoded is outside tolerance")
 
 
 def phase_kernels():
@@ -1328,6 +1426,10 @@ def phase_k1_positions(n_layer):
               "priced_at_pos95_ms": n_layer * steps * ms(width, 95)})
 
 
+# numbers one phase measures and a later one prints beside its own
+MEASURED = {}
+
+
 class _StampedDataset:
     """A training dataset that notes the host clock each time the trainer
     takes a batch, and keeps the transformed batches and the seconds the
@@ -1370,7 +1472,6 @@ def _host_pipeline(config, data, steps, step_s, canon_in_run):
     import statistics as st
 
     from coati_tpu_torch import native
-    from coati_tpu_torch.chem import graph_canon
     from coati_tpu_torch.chem.rdkit_support import canonicalize_or_self
     from coati_tpu_torch.data import xform
     from coati_tpu_torch.tokenizers import get_vocab
@@ -1393,8 +1494,7 @@ def _host_pipeline(config, data, steps, step_s, canon_in_run):
     before = dict(native.CANON_PATHS)
     cold = []
     for raw in raws:
-        graph_canon._canonical_cached.cache_clear()
-        xform._embed_conformer_cached.cache_clear()
+        _clear_host_caches()
         cold.append(replay(raw))
     canon_cold = {k: native.CANON_PATHS[k] - before[k] for k in before}
     warm = [replay(raw) for raw in raws]
@@ -1491,6 +1591,7 @@ def phase_train():
     intervals = np.diff(data.stamps)[warm:]
     check(len(intervals) == timed, f"train: {len(intervals)} timed steps, not {timed}")
     step_s = float(np.median(intervals))
+    MEASURED["train_mol_per_s"] = config.batch_size / step_s
     widths = sorted({(b["tokens"].shape[1], b["raw_tokens"].shape[1], b["atoms"].shape[1])
                      for b in data.batches[:steps]})
     emit({"phase": "train", "recipe": "grande", "dtype": config.dtype,
@@ -1948,6 +2049,445 @@ def phase_coati2_fp32_vs_plain():
           "launches": counts})
     check(rel <= 1e-5, f"coati2_fp32_vs_plain: loss {loss} against {plain_loss}")
 
+# ------------------------------------------------- data, restart, LoRA, generative
+
+def write_fixture_shards(root: Path, n_shards: int = 4) -> None:
+    """The 1,024 fixture molecules as COATI_dataset pickle shards under
+    root/datasets/coati_data/: each row's padding cut to its atoms, and
+    source_collection geom_drugs (a [SET] token of the 'mar' vocabulary)."""
+    import pickle
+
+    from coati_tpu_torch.data import load_points_fixture
+    from coati_tpu_torch.data.dataset import S3_PATH
+
+    smiles, atoms, coords = load_points_fixture()
+    rows = []
+    for s, a, c in zip(smiles, atoms, coords):
+        n = int((a > 0).sum())
+        rows.append({"smiles": s, "source_collection": "geom_drugs",
+                     "atoms": a[:n].astype(np.float64), "coords": c[:n].astype(np.float64)})
+    shard_dir = root / S3_PATH
+    shard_dir.mkdir(parents=True, exist_ok=True)
+    per = -(-len(rows) // n_shards)
+    for i in range(n_shards):
+        with open(shard_dir / f"{i}.pkl", "wb") as f:
+            pickle.dump(rows[i * per : (i + 1) * per], f)
+
+
+def _clear_host_caches():
+    from coati_tpu_torch.chem import graph_canon
+    from coati_tpu_torch.data import xform
+
+    graph_canon._canonical_cached.cache_clear()
+    xform._embed_conformer_cached.cache_clear()
+
+
+def phase_dataset_pool(data_root: Path):
+    """The dataset on disk and the host worker pool (host only): the
+    fixture's shards through COATI_dataset, rows per partition; then the
+    recipe's transform over its raw batches serially and through
+    XformWorkerPool at 1, 2 and cores - 2 workers with the default
+    read_ahead, beside the trainer's mol/s of phase train. The raw batches
+    are the fixture's 6 batches, then 4 more passes over them with each
+    SMILES written anew (permute_smiles), so that the canonicalizer's cache,
+    keyed on the string, misses on every row on both sides, as over a real
+    corpus of distinct rows."""
+    from coati_tpu_torch.chem.rdkit_support import permute_smiles
+    from coati_tpu_torch.data.dataset import COATI_dataset
+    from coati_tpu_torch.data.host_workers import XformWorkerPool
+    from coati_tpu_torch.data.xform import clip_ar_xform
+    from coati_tpu_torch.tokenizers import get_vocab
+    from coati_tpu_torch.tokenizers.trie_tokenizer import TrieTokenizer
+    from coati_tpu_torch.training.config import grande_config
+
+    recipe = grande_config()
+    xform_kwargs = {k: getattr(recipe, k) for k in (
+        "p_dataset", "p_formula", "p_fim", "p_graph", "p_clip", "p_clip_cut", "p_randsmiles")}
+    start = time.perf_counter()
+    write_fixture_shards(data_root)
+    write_s = time.perf_counter() - start
+    ds = COATI_dataset(str(data_root))
+    per_partition = {}
+    for part in ("train", "valid", "test"):
+        per_partition[part] = sum(len(b["smiles"]) for b in ds.get_data_pipe(
+            batch_size=1, partition=part, shuffle_seed=0))
+    check(sum(per_partition.values()) == 1024, f"dataset_pool: partitions {per_partition}")
+    batch, n_seq, repeats = recipe.batch_size, recipe.n_seq, 5
+    start = time.perf_counter()
+    distinct = list(ds.get_data_pipe(batch_size=batch, partition="raw", shuffle_seed=0))
+    read_s = time.perf_counter() - start
+    raws = list(distinct)
+    for r in range(1, repeats):
+        random.seed(r)  # permute_smiles draws from the global random module
+        raws += [dict(b, smiles=np.asarray([permute_smiles(str(s)) for s in b["smiles"]],
+                                           dtype=object)) for b in distinct]
+    writings = [str(s) for b in raws for s in b["smiles"]]
+
+    def copies():  # every batch a fresh copy: the transform writes into it
+        return ({k: v.copy() if isinstance(v, np.ndarray) else v for k, v in b.items()}
+                for b in raws)
+
+    tok = TrieTokenizer(n_seq=n_seq, **get_vocab(recipe.tokenizer_vocab))
+    _clear_host_caches()
+    rng = random.Random(0)
+    start = time.perf_counter()
+    serial = [clip_ar_xform(b, tokenizer=tok, rng=rng, **xform_kwargs) for b in copies()]
+    serial_s = time.perf_counter() - start
+    samples = sum(b["tokens"].shape[0] for b in serial)
+    cores = os.cpu_count() or 1
+    pools = []
+    for workers in sorted({1, 2, max(1, cores - 2)}):
+        _clear_host_caches()  # the workers fork with cold caches
+        start = time.perf_counter()
+        with XformWorkerPool(recipe.tokenizer_vocab, n_seq, xform_kwargs=xform_kwargs,
+                             n_workers=workers, seed=0) as pool:
+            it = pool.map(copies())
+            first = next(it)
+            first_s = time.perf_counter() - start
+            out = [first, *it]
+            total_s = time.perf_counter() - start
+            peak, read_ahead = pool.peak_in_flight, pool.read_ahead
+        check(len(out) == len(raws) and all(
+            b["tokens"].shape[0] == r["tokens"].shape[0] for b, r in zip(out, serial)),
+            f"dataset_pool: {workers} workers gave {len(out)} batches")
+        check(peak == min(len(raws), read_ahead + workers),
+              f"dataset_pool: {peak} batches in flight, read_ahead {read_ahead}, "
+              f"{workers} workers")
+        steady = sum(b["tokens"].shape[0] for b in out[1:]) / (total_s - first_s)
+        pools.append({"workers": workers, "read_ahead": read_ahead, "peak_in_flight": peak,
+                      "first_batch_s": first_s, "seconds": total_s,
+                      "samples_per_s": samples / total_s,
+                      "samples_per_s_after_first": steady,
+                      "over_serial": samples / total_s / (samples / serial_s)})
+    train_rate = MEASURED.get("train_mol_per_s")
+    emit({"phase": "dataset_pool", "rows_per_partition": per_partition,
+          "shards": len(ds.shard_paths()), "write_shards_s": write_s,
+          "read_raw_batches_s": read_s, "batch": batch, "n_seq": n_seq,
+          "distinct_batches": len(distinct), "batches": len(raws), "samples": samples,
+          "distinct_smiles_strings": len(set(writings)), "rows": len(writings),
+          "xform": xform_kwargs, "cores": cores, "serial_s": serial_s,
+          "serial_samples_per_s": samples / serial_s, "pools": pools,
+          "trainer_mol_per_s": train_rate,
+          "trainers_fed_at_most_workers": (max(p["samples_per_s_after_first"] for p in pools)
+                                           / train_rate if train_rate else None)})
+
+
+def phase_train_restart(data_root: Path, ckpt: Path):
+    """Restart checkpoints on the training path: train_autoencoder with the
+    grande recipe in bf16 on COATI_dataset over the fixture's shards, with
+    orbax_dir, three times over one directory: (1) one epoch, writing a
+    checkpoint mid-epoch (ngrad_to_save 480) and at its end; (2) the same
+    config again, which takes no step and must return run 1's parameters,
+    its end-of-run checkpoint holding run 1's parameters and optimizer state
+    bit for bit; (3) n_epochs 2, which resumes at epoch 1 with global_step
+    carried on. K5f and K5b are then held against their plain versions at
+    every width the runs' batches took. Returns the launch counts of runs 1
+    and 3."""
+    from coati_tpu_torch.data.dataset import COATI_dataset
+    from coati_tpu_torch.training import checkpoints, train
+    from coati_tpu_torch.training.config import grande_config
+
+    timings = {"save_s": [], "write_s": [], "restore_s": []}
+
+    class TimedManager(checkpoints.CheckpointManager):
+        def save(self, *a, **kw):
+            start = time.perf_counter()
+            super().save(*a, **kw)
+            timings["save_s"].append(time.perf_counter() - start)
+
+        def _write(self, *a, **kw):
+            start = time.perf_counter()
+            super()._write(*a, **kw)
+            timings["write_s"].append(time.perf_counter() - start)
+
+        def restore_latest(self, *a, **kw):
+            start = time.perf_counter()
+            out = super().restore_latest(*a, **kw)
+            torch.cuda.synchronize()
+            timings["restore_s"].append(time.perf_counter() - start)
+            return out
+
+    def run(n_epochs):
+        config = grande_config(dtype="bfloat16", n_epochs=n_epochs, orbax_dir=str(ckpt),
+                               ngrad_to_save=480)
+        random.seed(0)  # permute_smiles draws from the global random module
+        start = time.perf_counter()
+        model, results = train.train_autoencoder(config, COATI_dataset(str(data_root)), seed=0)
+        torch.cuda.synchronize()
+        return config, model, results, time.perf_counter() - start
+
+    def load(step):
+        return torch.load(ckpt / f"{step}.pt", map_location="cpu", weights_only=True)
+
+    saved_manager = train.CheckpointManager
+    train.CheckpointManager = TimedManager
+    try:
+        with record_shapes() as (shapes, _):
+            _zero_counts()  # the path starts here
+            config, first, r1, s1 = run(1)
+            counts = _counts()
+            steps1 = sorted(int(p.stem) for p in ckpt.glob("*.pt"))
+            _, second, r2, s2 = run(1)
+            steps2 = sorted(int(p.stem) for p in ckpt.glob("*.pt"))
+            n1 = len(r1["history"])
+            # run 1's end-of-run checkpoint and run 2's, before run 3's saves
+            # retire them
+            ends = ([load(n1)["state"], load(n1 + 1)["state"]]
+                    if steps2[-2:] == [n1, n1 + 1] else None)
+            ckpt_bytes = (ckpt / f"{n1}.pt").stat().st_size if ends else None
+            before = _counts()
+            config3, third, r3, s3 = run(2)
+            counts = {k: counts[k] + _counts()[k] - before[k] for k in counts}  # and ends here
+    finally:
+        train.CheckpointManager = saved_manager
+
+    check(n1 >= 4 and len(steps1) == 2 and steps1[-1] == n1,
+          f"train_restart: run 1 took {n1} steps and wrote steps {steps1}")
+    check(r2["history"] == [], f"train_restart: run 2 took {len(r2['history'])} steps")
+    same_params = all(torch.equal(a, b) for a, b in zip(first.state_dict().values(),
+                                                         second.state_dict().values()))
+    check(same_params, "train_restart: run 2 does not return run 1's parameters")
+    check(steps2 == steps1 + [n1 + 1] and ends is not None,
+          f"train_restart: run 2 wrote steps {steps2}")
+    a, b = ends
+    same = (all(torch.equal(a["params"][k], b["params"][k]) for k in a["params"])
+            and a["opt_state"]["param_groups"] == b["opt_state"]["param_groups"]
+            and a["opt_state"]["state"].keys() == b["opt_state"]["state"].keys()
+            and all(torch.equal(x, b["opt_state"]["state"][i][k])
+                    for i, s in a["opt_state"]["state"].items() for k, x in s.items())
+            and torch.equal(a["counters"], b["counters"]))
+    check(same, "train_restart: run 2's checkpoint differs from run 1's")
+    losses3 = np.array([h[3:] for h in r3["history"]], np.float64)
+    epochs3 = {h[1] for h in r3["history"]}
+    final = load(max(int(p.stem) for p in ckpt.glob("*.pt")))["state"]["counters"].tolist()
+    check(epochs3 == {1} and len(losses3) == n1 and bool(np.isfinite(losses3).all()),
+          f"train_restart: run 3 epochs {epochs3}, {len(losses3)} steps")
+    check(final[2:] == [2, 2 * n1], f"train_restart: run 3 ended with counters {final}")
+    check(r3["learning_rates"][0] == train.cosine_lr(config3, 1),
+          f"train_restart: run 3 began at lr {r3['learning_rates'][0]}")
+    n_x, n_e = config.n_layer_xformer, config.n_layer_e3gnn
+    expected = {"packed_causal_attention": 4 * n_x, "packed_causal_attention_backward": 2 * n_x,
+                "egnn_messages": n_e, "egnn_messages_backward": n_e,
+                "flash_causal_attention": 0, "decode_attention": 0, "decode_attention_quant": 0}
+    per_step = {k: c / (2 * n1) for k, c in counts.items()}
+    check(per_step == expected, f"train_restart: launches a step {per_step}")
+    # K5f and K5b at the widths the batches took: the AR pass (B 160) and
+    # the two views (B 320)
+    check({s[0] for s in shapes} == {"packed_causal_attention",
+                                     "packed_causal_attention_backward"},
+          f"train_restart: attention shapes {sorted(shapes)}")
+    hold_path_shapes("train_restart", shapes)
+    emit({"phase": "train_restart", "recipe": "grande", "dtype": config.dtype,
+          "batch": config.batch_size, "ngrad_to_save": config.ngrad_to_save,
+          "steps_run1_run2_run3": [n1, 0, len(losses3)],
+          "seconds_run1_run2_run3": [s1, s2, s3], "steps_written": steps2,
+          "checkpoint_bytes": ckpt_bytes,
+          "save_s": timings["save_s"], "write_s": timings["write_s"],
+          "restore_s": timings["restore_s"], "run2_equal_bit_for_bit": True,
+          "run3_first_lr": r3["learning_rates"][0], "run3_counters": final,
+          "ar_loss_run1_first_last": [r1["history"][0][4], r1["history"][-1][4]],
+          "ar_loss_run3_first_last": [losses3[0, 1], losses3[-1, 1]],
+          "launches": counts})
+    return counts
+
+
+def phase_lora(work: Path):
+    """LoRA fine-tuning of the trained document at full width: rank-8
+    adapters, 20 AR steps of batch 64 in bf16 over bench.py's SMILES and the
+    first corpus SMILES padded to n_seq (the AR loss of a fixed batch must
+    fall, the base must not move); then the merged model written as a
+    document and reloaded, whose encodings must equal the merged model's.
+    Returns the launch counts of the path. After it, one float32 step
+    through the kernels against the same step through the plain versions."""
+    import copy
+
+    from coati_tpu_torch.models.api import COATI
+    from coati_tpu_torch.models.coati import ar_loss_fn
+    from coati_tpu_torch.models.io import (
+        load_e3gnn_smiles_clip_e2e,
+        load_model_doc,
+        model_to_state,
+        serialize_model,
+    )
+    from coati_tpu_torch.models.transformer import forward_logits
+    from coati_tpu_torch.training import finetune
+
+    model, tok = load_e3gnn_smiles_clip_e2e(str(DOC))
+    base = model.params.xformer
+    cfg = model.config.xformer_config.replace(dtype="bfloat16")
+    corpus = gzip.open(CORPUS, "rt").read().split()
+    texts = BENCH_SMILES + corpus[: 1024 - len(BENCH_SMILES)]
+    rows = np.asarray([tok.tokenize_text("[SMILES]" + s + "[STOP]", pad=True) for s in texts],
+                      np.int64)
+    y_next = np.zeros_like(rows)
+    y_next[:, :-1] = rows[:, 1:]
+    y_next[y_next == tok.pad_token] = -1
+    fixed = (torch.as_tensor(rows[:64], device=model.device),
+             torch.as_tensor(y_next[:64], device=model.device))
+    frozen = {k: v.clone() for k, v in base.state_dict().items()}
+
+    def fixed_loss(lora):
+        with torch.no_grad():
+            return float(ar_loss_fn(forward_logits(finetune.merge_lora(base, lora), cfg,
+                                                   fixed[0]), fixed[1]))
+
+    lora = finetune.init_lora(torch.Generator(device=model.device).manual_seed(0), base, rank=8)
+    optimizer = torch.optim.Adam(lora.parameters(), lr=5e-4)
+    step = finetune.make_lora_ar_step(base, cfg, optimizer)
+    rng = np.random.default_rng(0)
+    before = fixed_loss(lora)
+    _zero_counts()  # the path starts here
+    losses, step_s = [], []
+    for _ in range(20):
+        idx = rng.integers(0, len(rows), size=64)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        losses.append(float(step(lora, rows[idx], y_next[idx])))  # waits for the step
+        step_s.append(time.perf_counter() - start)
+    train_counts = _counts()
+    after = fixed_loss(lora)
+    unchanged = all(torch.equal(v, frozen[k]) for k, v in base.state_dict().items())
+    merged = finetune.merged_model(model.params, lora)
+    src = load_model_doc(str(DOC))
+    path = work / "lora_merged.pkl"
+    path.write_bytes(serialize_model(
+        train_args=dict(src["train_args"], lora_rank=8, lora_alpha=16.0),
+        dataset_summary={"finetune_corpus_size": len(rows)},
+        model_state=model_to_state(merged), model_kwargs=dict(src["model_kwargs"])))
+    loaded, ltok = load_e3gnn_smiles_clip_e2e(str(path))
+    enc = rows[:64]
+    h_loaded = loaded.encode_tokens(enc, ltok)
+    h_merged = COATI(merged, loaded.config).encode_tokens(enc, tok)
+    counts = _counts()  # and ends here
+    reload_diff = float((h_loaded - h_merged).abs().max())
+    check(bool(np.isfinite(losses).all()), "lora: a loss is not finite")
+    check(after < before and np.mean(losses[-5:]) < np.mean(losses[:5]),
+          f"lora: the fixed batch's AR loss went {before} -> {after}, steps {losses}")
+    check(unchanged, "lora: a base weight moved")
+    check(torch.equal(h_loaded, h_merged),
+          f"lora: the reloaded document encodes {reload_diff} away from the merged model")
+    n_layer = cfg.n_layer
+    check(train_counts["flash_causal_attention"] == 20 * n_layer
+          and train_counts["packed_causal_attention"] == 0,
+          f"lora: launches of the 20 steps {train_counts}")
+    hold_path_shapes("lora", [("flash_causal_attention", 64, tok.n_seq, cfg.n_head,
+                               cfg.head_dim, "bfloat16")])
+    emit({"phase": "lora", "doc": DOC.name, "rank": 8, "alpha": 16.0, "lr": 5e-4,
+          "dtype": "bfloat16", "batch": 64, "T": tok.n_seq, "steps": 20,
+          "adapter_parameters": sum(p.numel() for p in lora.parameters()),
+          "trunk_parameters": sum(p.numel() for p in base.parameters()),
+          "step_seconds": float(np.median(step_s[3:])), "step_seconds_all": step_s,
+          "loss_all": losses, "fixed_batch_loss_before_after": [before, after],
+          "base_unchanged": True, "reload_rows": len(enc), "reload_bit_equal": True,
+          "document_bytes": path.stat().st_size, "launches": counts,
+          "launches_20_steps": train_counts})
+
+    # one float32 step through the kernels and through the plain versions,
+    # from the trained adapters and the same batch, outside the window
+    f32 = model.config.xformer_config.replace(dtype="float32")
+    idx = np.arange(32)
+
+    def fp32_step(plain):
+        adapters = copy.deepcopy(lora)
+        opt = torch.optim.Adam(adapters.parameters(), lr=5e-4)
+        one = finetune.make_lora_ar_step(base, f32, opt)
+        _zero_counts()
+        with plain_versions() if plain else contextlib.nullcontext():
+            loss = float(one(adapters, rows[idx], y_next[idx]))
+        torch.cuda.synchronize()
+        return loss, {n: p.grad.clone() for n, p in adapters.named_parameters()}, _counts()
+
+    plain_loss, plain_grads, plain_counts = fp32_step(True)
+    check(sum(plain_counts.values()) == 0, "lora_fp32_vs_plain: the plain step launched")
+    loss, grads, fp32_counts = fp32_step(False)
+    check(fp32_counts["flash_causal_attention"] == n_layer,
+          f"lora_fp32_vs_plain: launches {fp32_counts}")
+    worst, worst_name = 0.0, ""
+    for name, g in grads.items():
+        ref = plain_grads[name]
+        tol = 1e-4 * max(1.0, float(ref.abs().max()))
+        err = float((g - ref).abs().max())
+        check(err <= tol, f"lora_fp32_vs_plain: gradient of {name} differs by {err} (tol {tol})")
+        if err / tol > worst:
+            worst, worst_name = err / tol, name
+    rel = abs(loss - plain_loss) / abs(plain_loss)
+    emit({"phase": "lora_fp32_vs_plain", "batch": len(idx), "T": tok.n_seq, "loss": loss,
+          "plain_loss": plain_loss, "loss_rel_diff": rel, "adapters_compared": len(grads),
+          "worst_gradient_err_over_tol": worst, "worst_adapter": worst_name,
+          "launches": fp32_counts})
+    check(rel <= 1e-5, f"lora_fp32_vs_plain: loss {loss} against {plain_loss}")
+    return counts
+
+
+def phase_generative(model, tok):
+    """The generative helpers on the trained document in the production
+    setting (bf16, int8 KV cache): embed bench.py's 16 SMILES and
+    force-decode each (how many come back as their input's canonical
+    SMILES); purify 4 of them (n_rep 128); fit a density in closed form to
+    the embeddings of the fixture's 1,024 SMILES and force-decode 64 draws
+    (the valid share); one epoch of estimate_density_batchwise at batch
+    1024. K2 is then held against its plain version at every shape the path
+    ran it, and K1 at every batch and position the path decoded at. Returns
+    the launch counts of the path."""
+    from coati_tpu_torch.chem.rdkit_support import canonicalize_or_self, is_valid_smiles
+    from coati_tpu_torch.data import load_points_fixture
+    from coati_tpu_torch.generative import density, purifications
+
+    fixture, _, _ = load_points_fixture()
+    seconds = {}
+
+    def timed(label, fn):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[label] = time.perf_counter() - start
+        return out
+
+    with record_shapes() as (full, decode):
+        _zero_counts()  # the path starts here
+        h = timed("embed_smiles_batch_16", lambda: purifications.embed_smiles_batch(
+            BENCH_SMILES, model, tok))
+        decoded = timed("force_decode_valid_batch_16", lambda: [
+            purifications.force_decode_valid_batch(v, model, tok) for v in h])
+        purified = timed("purify_vector_4", lambda: [
+            purifications.purify_vector(v, model, tok, n_rep=128) for v in h[:4]])
+        embeds = timed("embed_fixture_1024", lambda: model.encode_tokens(
+            _tokens(tok, fixture, tok.n_seq), tok))
+        fit = timed("fit_density_closed_form", lambda: density.fit_density_closed_form(embeds))
+        draws = fit.sample(torch.Generator(device=model.device).manual_seed(0), (64,))
+        sampled = timed("force_decode_64_draws", lambda: [
+            purifications.force_decode_valid_batch(v, model, tok)
+            for v in draws.cpu().numpy()])
+        estimated = timed("estimate_density_batchwise_1024",
+                          lambda: density.estimate_density_batchwise(
+                              fixture, model, tok, batch_size=1024, epochs=1, verbose=False))
+        counts = _counts()  # and ends here
+
+    canonical = [canonicalize_or_self(s) for s in BENCH_SMILES]
+    back = sum(d == c for d, c in zip(decoded, canonical))
+    valid = sum(s != "C" and is_valid_smiles(s) for s in sampled)
+    moved = [float(np.linalg.norm(p - v)) for p, v in zip(purified, h[:4])]
+    check(h.shape == (16, model.embed_dim) and np.isfinite(h).all(), "generative: embeddings")
+    check(all(is_valid_smiles(s) for s in decoded), "generative: a force-decode is not valid")
+    check(all(p.shape == (model.embed_dim,) and np.isfinite(p).all() for p in purified),
+          "generative: a purified vector")
+    check(bool(torch.isfinite(fit.scale_tril).all()) and bool(torch.isfinite(draws).all()),
+          "generative: the closed-form density")
+    check(counts["flash_causal_attention"] > 0 and counts["decode_attention_quant"] > 0,
+          f"generative: launches {counts}")
+    hold_path_shapes("generative", full)
+    hold_decode_positions("generative", decode)
+    emit({"phase": "generative", "doc": DOC.name, "dtype": "bfloat16", "kv": "int8/float32",
+          "force_decoded": len(decoded), "back_to_input_canonical": back,
+          "decoded": decoded, "purified": len(purified),
+          "purify_moved_norm": moved, "density_rows": int(embeds.shape[0]),
+          "density_draws": len(sampled), "draws_valid": valid, "draws_valid_share": valid / 64,
+          "distinct_valid_draws": len({s for s in sampled if s != "C"}),
+          "estimate_density_stopped": estimated is not None, "seconds": seconds,
+          "launches": counts})
+    return counts
+
 
 def _profile(fn, label, wall_s, top=12):
     """Device time by kernel over one call of fn (torch.profiler): the top
@@ -2026,6 +2566,20 @@ def main() -> int:
     lap("coati2_train")
     phase_coati2_fp32_vs_plain()
     lap("coati2_fp32_vs_plain")
+    with tempfile.TemporaryDirectory() as work:
+        work = Path(work)
+        phase_dataset_pool(work / "data")
+        lap("dataset_pool")
+        paths["train_restart"] = phase_train_restart(work / "data", work / "ckpt")
+        lap("train_restart")
+        paths["lora"] = phase_lora(work)
+        lap("lora")
+    model, tok = load_model()
+    from coati_tpu_torch.models.api import COATI
+
+    prod = COATI(model.params, model.config.replace(dtype="bfloat16"), seed=0)
+    paths["generative"] = phase_generative(prod, tok)
+    lap("generative")
     emit({"phase": "launches", "by_path": paths})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -11,14 +11,16 @@ membership of every published artifact:
     assembly, optional xform routine.
 
 `pad_to_bucket` rounds the atom dimension up to a small set of bucket
-sizes, so that the message kernels see few distinct N. The JAX package's
-readers of pickled shards (unstack_pickles, shuffle_buffer) come with the
-dataset loader that uses them.
+sizes, so that the message kernels see few distinct N. `unstack_pickles`
+and `shuffle_buffer` read and shuffle the pickled shards of
+data/dataset.py's COATI_dataset; the shuffle makes the same numpy
+Generator calls as coati_tpu's, so one seed gives one order in both.
 """
 
 from __future__ import annotations
 
 import hashlib
+import pickle
 from typing import Callable, Dict, Iterable, Iterator, List, Optional, Sequence
 
 import numpy as np
@@ -129,6 +131,31 @@ def batch_rows(
         yield xform_routine(
             stack_batch(batch, return_coords=True, pad_to_bucket=pad_to_bucket)
         )
+
+
+def unstack_pickles(paths: Iterable[str]) -> Iterator[List[Dict]]:
+    """Yield the row-list stored in each pickle shard (shards this project
+    or its users wrote: unpickling runs what the file says)."""
+    for path in paths:
+        with open(path, "rb") as f:
+            yield pickle.load(f)
+
+
+def shuffle_buffer(
+    items: Iterable, buffer_size: int, rng: Optional[np.random.Generator] = None
+) -> Iterator:
+    """Streaming shuffle with a bounded buffer: once the buffer holds
+    `buffer_size` items, each new item swaps a random one out."""
+    rng = rng or np.random.default_rng()
+    buf: List = []
+    for item in items:
+        buf.append(item)
+        if len(buf) >= buffer_size:
+            idx = int(rng.integers(len(buf)))
+            buf[idx], buf[-1] = buf[-1], buf[idx]
+            yield buf.pop()
+    rng.shuffle(buf)
+    yield from buf
 
 
 class SmilesRows:

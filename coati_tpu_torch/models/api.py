@@ -406,3 +406,34 @@ class COATI(InjectedDecoder):
         y_next[:, -1] = -1
         y_next[y_next == tokenizer.pad_token] = -1
         return self._likelihood(dec_tokens, y_next, h_token, tokenizer.unk_token), mask
+
+    # ------------------------------------------------------------- train
+    def forward(
+        self,
+        raw_tokens,
+        augmented_tokens,
+        atoms,
+        coords,
+        tokenizer: TrieTokenizer,
+        p_clip_emb_smi: float = 0.4,
+    ):
+        """Training forward (h_e3gnn, h_smiles, logits, bad_rows) of host
+        arrays or tensors, on the model's device: each row's injected clip
+        token is the point embedding's with probability 1 - p_clip_emb_smi,
+        drawn from the model's generator. Autograd records it, so a loss of
+        its outputs reaches the float32 parameters."""
+        return coati.forward(
+            self.params,
+            self.config,
+            self._generator,
+            self._tokens(raw_tokens),
+            self._tokens(augmented_tokens),
+            self._tokens(np.asarray(atoms).astype(np.int64)),
+            torch.as_tensor(np.asarray(coords, dtype=np.float32), device=self.device),
+            tokenizer.stop_token,
+            tokenizer.unk_token,
+            p_clip_emb_smi,
+        )
+
+    # the reference's DDP variant of forward; on one device the same function
+    forward_dist = forward

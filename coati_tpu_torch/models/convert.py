@@ -279,3 +279,17 @@ def convert_coati2(state_dict: Mapping[str, object], cfg: Coati2Config) -> Coati
     """A reference COATI_Smiles_Inference state dict (simple_coati2) loaded
     strictly into a Coati2Model."""
     return load_reference_state_dict(Coati2Model(cfg), state_dict)
+
+
+# -------------------------------------------------------------------- LoRA
+
+
+def lora_from_coati_tpu(lora):
+    """coati_tpu's LoraParams (numpy or JAX leaves under a / b, with rank
+    and alpha) -> the port's LoraParams. Both keep A as (L, in, r) and B as
+    (L, r, out) under the same target names, so nothing is transposed."""
+    from coati_tpu_torch.training.finetune import LoraParams
+
+    return LoraParams({k: _tensor(v).float() for k, v in lora.a.items()},
+                      {k: _tensor(v).float() for k, v in lora.b.items()},
+                      rank=int(lora.rank), alpha=float(lora.alpha))

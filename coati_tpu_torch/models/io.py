@@ -144,6 +144,12 @@ def load_coati2(
     return COATI2(model, cfg), tokenizer
 
 
+def load_offline_loss(doc_url: str):
+    """The loss curves a training run stored in its document."""
+    print("Loading Loss from offline training")
+    return load_model_doc(doc_url)["offline_loss"]
+
+
 # ------------------------------------------------------- our checkpoints
 
 

@@ -87,8 +87,12 @@ class TrainConfig:
 
     resume_document: Optional[str] = None
     resume_optimizer: bool = False
-    # restart-from-latest checkpoint directory of the JAX package; not
-    # ported yet: train_autoencoder raises when it is set
+    # restart checkpoints: a directory of torch.save files (<step>.pt, the
+    # float32 master state dict, the optimizer's state and the loop's
+    # counters; training/checkpoints.py), written at the document cadence
+    # and at the end of a run. A run over a directory that holds one
+    # resumes from its latest. The name is coati_tpu's, whose checkpoints
+    # are orbax's, so that its configs load unchanged
     orbax_dir: Optional[str] = None
 
     # fields of the JAX package's multi-device step ("pjit" | "shard_map";

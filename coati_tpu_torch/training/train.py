@@ -13,13 +13,16 @@ over all valid tokens of the batch.
     cross-entropies are taken in float32;
   * checkpoints are model documents with the reference envelope (train_args
     / model_kwargs / offline_loss / token counters), the model as the flat
-    reference state dict of numpy arrays, which both packages' loaders read.
+    reference state dict of numpy arrays, which both packages' loaders read;
+  * with `orbax_dir`, restart checkpoints (training/checkpoints.py, torch.save
+    files) at the document cadence and at the end; a run over a directory
+    that holds one resumes from its latest step, at its epoch, with the
+    warmup schedule's global step carried on.
 
 PyTorch modules and optimizers hold their state, so where the JAX step maps
 (params, opt_state, rng, batch) to new ones, `TrainStep` updates the model
 and the optimizer it was built with, and draws from the generator it is
-given. Multi-device training and restart checkpoints (`orbax_dir`) are not
-ported yet and raise.
+given. Multi-device training is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from coati_tpu_torch.models.io import load_model_doc, model_to_state, serialize_
 from coati_tpu_torch.ops.kernels.packed_attention import MAX_T as PACKED_MAX_T
 from coati_tpu_torch.tokenizers import get_vocab
 from coati_tpu_torch.tokenizers.trie_tokenizer import TrieTokenizer
+from coati_tpu_torch.training.checkpoints import CheckpointManager
 from coati_tpu_torch.training.config import TrainConfig
 from coati_tpu_torch.training.diagnostics import step_timer
 from coati_tpu_torch.training.flops import coati_train_step_model_flops
@@ -327,6 +331,31 @@ def _resume_optimizer(optimizer: torch.optim.Optimizer, saved) -> bool:
     return True
 
 
+def restore_restart(ckpt_mgr: CheckpointManager, model: torch.nn.Module,
+                    optimizer: torch.optim.Optimizer, n_counters: int) -> Optional[list]:
+    """Load the latest restart checkpoint (the float32 master state dict,
+    the optimizer's state dict and the loop's int64 counters) into the
+    model and the optimizer; returns its counters as ints, or None when the
+    directory holds none."""
+    restored = ckpt_mgr.restore_latest({
+        "params": model.state_dict(), "opt_state": optimizer.state_dict(),
+        "counters": torch.zeros((n_counters,), dtype=torch.int64)})
+    if restored is None:
+        return None
+    model.load_state_dict(restored["params"], strict=True)
+    optimizer.load_state_dict(restored["opt_state"])
+    return [int(x) for x in restored["counters"]]
+
+
+def save_restart(ckpt_mgr: Optional[CheckpointManager], step: int, model: torch.nn.Module,
+                 optimizer: torch.optim.Optimizer, counters) -> None:
+    """Save the model, the optimizer and the counters as restart step
+    `step`; nothing when there is no manager."""
+    if ckpt_mgr is not None:
+        ckpt_mgr.save(step, {"params": model.state_dict(), "opt_state": optimizer.state_dict(),
+                             "counters": torch.tensor(counters, dtype=torch.int64)})
+
+
 def train_autoencoder(
     config: TrainConfig,
     dataset,
@@ -339,17 +368,15 @@ def train_autoencoder(
     Runs on `device`: the CUDA card unless the caller names another; with no
     card and no device this raises. Every row is canonicalized and augmented
     by clip_ar_xform as in coati_tpu, drawing from the global `random`
-    module. Returns (model, results);
+    module. With config.orbax_dir, restart checkpoints are written there
+    and the run resumes from the latest (see the module docstring).
+    Returns (model, results);
     results["history"] holds (partition, epoch, step, loss, ar_loss,
-    clip_loss) per step and results["train_step_seconds"] the host seconds
-    of each training step (a step's metrics are waited for one step later,
-    so in steady state a value is a whole step)."""
+    clip_loss) per step, results["learning_rates"] the learning rate of each
+    training step and results["train_step_seconds"] the host seconds of
+    each training step (a step's metrics are waited for one step later, so
+    in steady state a value is a whole step)."""
     config.check_single_device()
-    if config.orbax_dir:
-        raise NotImplementedError(
-            "orbax_dir: restart checkpoints (coati_tpu/training/checkpoints.py) are not "
-            "ported yet; resume from a model document with resume_document"
-        )
     device = resolve_device(device)
 
     if logger is not None:
@@ -407,7 +434,16 @@ def train_autoencoder(
     optimizer = make_optimizer(config, model)
     if doc is not None and config.resume_optimizer:
         _resume_optimizer(optimizer, doc.get("optimizer"))
+    start_epoch = 0
     global_step = 0
+
+    ckpt_mgr = None
+    if config.orbax_dir:
+        ckpt_mgr = CheckpointManager(config.orbax_dir)
+        counters = restore_restart(ckpt_mgr, model, optimizer, 4)
+        if counters is not None:
+            n_toks, ngrad_updates, start_epoch, global_step = counters
+            print(f"Resumed from restart step {ckpt_mgr.latest_step()} (epoch {start_epoch})")
 
     step_kwargs = dict(
         stop_token=tokenizer.stop_token,
@@ -434,7 +470,8 @@ def train_autoencoder(
 
     generator = torch.Generator(device=device).manual_seed(seed + 1)
     results = {"epochs": [], "losses": [], "best_test": 1e10, "best_epoch": 0,
-               "best_params": None, "history": [], "train_step_seconds": []}
+               "best_params": None, "history": [], "learning_rates": [],
+               "train_step_seconds": []}
 
     def checkpoint(tags):
         blob = serialize_model(
@@ -449,6 +486,10 @@ def train_autoencoder(
         )
         if logger is not None:
             logger.log_model_document(blob, tags=tags)
+
+    def restart_checkpoint(epoch: int):
+        save_restart(ckpt_mgr, global_step, model, optimizer,
+                     [n_toks, ngrad_updates, epoch, global_step])
 
     def do_epoch(epoch: int, partition: str) -> Optional[float]:
         nonlocal n_toks, ngrad_updates, global_step
@@ -512,6 +553,7 @@ def train_autoencoder(
                     # and before queuing the next step
                     dm.drain()
                 if partition == "train":
+                    results["learning_rates"].append(optimizer.param_groups[0]["lr"])
                     metrics = step_train(generator, device_batch)
                     global_step += 1
                 else:
@@ -527,6 +569,7 @@ def train_autoencoder(
                 if ngrad_updates > config.ngrad_to_save:
                     ngrad_updates = 0
                     checkpoint({"train_epoch": str(epoch), "dataset_epoch": str(epoch)})
+                    restart_checkpoint(epoch)
         dm.drain()
         results["history"].extend(
             (partition, epoch, j, *values) for j, values in enumerate(loss_arr))
@@ -552,7 +595,7 @@ def train_autoencoder(
             )
         return totals["loss"] / totals["count"]
 
-    for epoch in range(config.n_epochs):
+    for epoch in range(start_epoch, config.n_epochs):
         set_learning_rate(optimizer, cosine_lr(config, epoch))
         do_epoch(epoch, "train")
         if epoch % config.test_interval == 0 and epoch > 0:
@@ -572,4 +615,8 @@ def train_autoencoder(
             )
 
     checkpoint({"best": "best"})
+    restart_checkpoint(config.n_epochs)
+    if ckpt_mgr is not None:
+        ckpt_mgr.wait()
+        ckpt_mgr.close()
     return model, results

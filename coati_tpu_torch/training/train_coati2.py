@@ -13,7 +13,9 @@ whole batch.
   * the optimizer, schedule and metric reads of training/train.py
     (ClippedAdamW, cosine_lr per epoch, DeferredMetrics);
   * checkpoints are COATI2 model documents with the model as the flat
-    reference state dict of numpy arrays, which load_coati2 reads.
+    reference state dict of numpy arrays, which load_coati2 reads; with
+    `orbax_dir`, restart checkpoints as train_autoencoder writes them, with
+    coati_tpu's three counters (n_toks, epoch, global_step).
 
 Every full-sequence attention of the port is a kernel. Where coati_tpu
 pins its plain attention for training, the port takes the short-sequence
@@ -22,8 +24,7 @@ model_config_from_train_config does for COATI, and else K2, whose backward
 replays the plain attention. coati_tpu's recipe takes the softmax in the
 compute dtype (softmax_dtype "compute"); the port's kernels keep it in
 float32, so the two agree in float32 and not bit for bit under bfloat16.
-Multi-device training and restart checkpoints (`orbax_dir`) are not ported
-yet and raise.
+Multi-device training is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -51,6 +52,7 @@ from coati_tpu_torch.models.io import (
 from coati_tpu_torch.ops.kernels.packed_attention import MAX_T as PACKED_MAX_T
 from coati_tpu_torch.tokenizers import get_vocab
 from coati_tpu_torch.tokenizers.trie_tokenizer import TrieTokenizer
+from coati_tpu_torch.training.checkpoints import CheckpointManager
 from coati_tpu_torch.training.diagnostics import step_timer
 from coati_tpu_torch.training.flops import coati2_train_step_model_flops
 from coati_tpu_torch.training.logger import COATILogger
@@ -60,6 +62,8 @@ from coati_tpu_torch.training.train import (
     cosine_lr,
     make_epoch_metrics_processor,
     make_optimizer,
+    restore_restart,
+    save_restart,
     set_learning_rate,
 )
 
@@ -113,6 +117,7 @@ class Coati2TrainConfig:
     test_interval: int = 1
     ngrad_to_save: float = 2e6
     resume_document: Optional[str] = None
+    # restart checkpoints (torch.save files; see TrainConfig.orbax_dir)
     orbax_dir: Optional[str] = None
     # kept so that coati_tpu's configs load; the port has one device: see
     # check_single_device
@@ -252,15 +257,12 @@ def train_coati2(
     precomputed 'properties' / 'rand_smiles' / flag columns). Runs on
     `device`: the CUDA card unless the caller names another; with no card
     and no device this raises. The transform draws from the global `random`
-    module, as coati_tpu's does. Returns (model, results); results["history"]
-    holds (partition, epoch, step, loss, ar_loss, clr_loss) per step and
-    results["train_step_seconds"] the host seconds of each training step."""
+    module, as coati_tpu's does. With config.orbax_dir, restart checkpoints
+    are written there and the run resumes from the latest. Returns (model,
+    results); results["history"] holds (partition, epoch, step, loss,
+    ar_loss, clr_loss) per step and results["train_step_seconds"] the host
+    seconds of each training step."""
     config.check_single_device()
-    if config.orbax_dir:
-        raise NotImplementedError(
-            "orbax_dir: restart checkpoints (coati_tpu/training/checkpoints.py) are not "
-            "ported yet; resume from a model document with resume_document"
-        )
     device = resolve_device(device)
 
     tokenizer = TrieTokenizer(n_seq=config.n_seq, **get_vocab(config.tokenizer_vocab))
@@ -279,6 +281,15 @@ def train_coati2(
         print("Loaded from checkpoint. ")
     model.train()
     optimizer = make_optimizer(config, model)
+    start_epoch = 0
+    global_step = 0
+    ckpt_mgr = None
+    if config.orbax_dir:
+        ckpt_mgr = CheckpointManager(config.orbax_dir)
+        counters = restore_restart(ckpt_mgr, model, optimizer, 3)
+        if counters is not None:
+            n_toks, start_epoch, global_step = counters
+            print(f"Resumed from restart step {ckpt_mgr.latest_step()} (epoch {start_epoch})")
 
     step_kwargs = dict(
         stop_token=tokenizer.stop_token, unk_token=tokenizer.unk_token,
@@ -311,8 +322,11 @@ def train_coati2(
         if logger is not None:
             logger.log_model_document(blob, tags=tags)
 
+    def restart_checkpoint(epoch: int):
+        save_restart(ckpt_mgr, global_step, model, optimizer, [n_toks, epoch, global_step])
+
     def do_epoch(epoch: int, partition: str) -> Optional[float]:
-        nonlocal n_toks, ngrad_updates
+        nonlocal n_toks, ngrad_updates, global_step
         timer = step_timer()
         t0 = time.time()
         loss_arr, ng = [], 0
@@ -349,6 +363,8 @@ def train_coati2(
                     dm.drain()
                 step = step_train if partition == "train" else step_eval
                 metrics = step(device_batch)
+                if partition == "train":
+                    global_step += 1
                 if dm.sync:
                     dm.push(i, metrics, bsz)
             if not dm.sync:
@@ -360,6 +376,7 @@ def train_coati2(
                 if ngrad_updates > config.ngrad_to_save:
                     ngrad_updates = 0
                     checkpoint({"train_epoch": str(epoch)})
+                    restart_checkpoint(epoch)
         dm.drain()
         results["history"].extend(
             (partition, epoch, j, *values) for j, values in enumerate(loss_arr))
@@ -378,7 +395,7 @@ def train_coati2(
             )
         return totals["loss"] / totals["count"]
 
-    for epoch in range(config.n_epochs):
+    for epoch in range(start_epoch, config.n_epochs):
         set_learning_rate(optimizer, cosine_lr(config, epoch))
         do_epoch(epoch, "train")
         if epoch % config.test_interval == 0 and epoch > 0:
@@ -393,4 +410,8 @@ def train_coati2(
             print(f"test loss: {test_loss:.4f} \t epoch {epoch}")
 
     checkpoint({"best": "best"})
+    restart_checkpoint(config.n_epochs)
+    if ckpt_mgr is not None:
+        ckpt_mgr.wait()
+        ckpt_mgr.close()
     return model, results

@@ -250,6 +250,28 @@ def test_conformers_and_force_field_energies_equal_coati_tpu_s(conformer_smiles)
     assert t_conf.embed_conformer(s)[2] == j_conf.embed_conformer(s)[2]
 
 
+@pytest.mark.parametrize("smiles", ["C1/C=C/1", "C1/C=C\\1", "FC1/C=C/1"])
+def test_stereo_double_bond_in_a_three_ring_bounds_as_coati_tpu_s(smiles):
+    """A stereo double bond inside a 3-membered ring gives a cis/trans
+    quadruple whose two ends are one atom (i == l). The bounds loop of both
+    packages has no i != l guard and writes that atom's band onto the
+    diagonal of `lower`, which the fill_diagonal after it clears. The port
+    keeps coati_tpu's behaviour: the same quadruples, the same bounds
+    matrices (with a zero diagonal), and the same atoms and coordinates
+    within 1e-6 Angstrom."""
+    g = t_conf._HGraph(t_sl.parse_smiles(smiles), True)
+    r_g = j_conf._HGraph(j_sl.parse_smiles(smiles), True)
+    assert g.cistrans == r_g.cistrans
+    assert any(i == l for i, _, _, l, _ in g.cistrans)
+    for mine, ref in zip(t_conf._bounds(g), j_conf._bounds(r_g)):
+        np.testing.assert_array_equal(mine, ref)
+        assert not np.diag(mine).any()
+    atoms, coords = t_conf.embed_smiles_to_atoms_coords(smiles)[:2]
+    r_atoms, r_coords = j_conf.embed_smiles_to_atoms_coords(smiles)[:2]
+    assert np.array_equal(atoms, r_atoms) and np.isfinite(coords).all()
+    np.testing.assert_allclose(coords, r_coords, rtol=0, atol=1e-6)
+
+
 def test_optimized_conformers_rank_by_energy_as_coati_tpu_s(conformer_smiles):
     """mol_to_atoms_coords with optimize: the force-field-minimized
     lowest-energy conformer of three and its energy."""

@@ -592,6 +592,40 @@ def test_training_forward_draws_the_choice_from_the_generator():
     assert not torch.equal(logits(0, 0.0), logits(0, 1.0))
 
 
+@pytest.mark.parametrize("p_clip_emb_smi", [0.0, 1.0], ids=["point_token", "smiles_token"])
+def test_api_forward_and_forward_dist_match_jax(p_clip_emb_smi):
+    """COATI.forward of host arrays against coati_tpu's at a probability
+    where no draw decides (0: every row injects the point embedding's token,
+    1: the SMILES embedding's): the four outputs, on the model's device;
+    forward_dist is the same method."""
+    tok = hp.tokenizer(32)
+    jparams, jcfg, model, tcfg = hp.model_pair(seed=50)
+    batch = hp.batch_arrays(tok, TRAIN_SMILES, seed=51)
+    args = (batch["raw_tokens"], batch["tokens"], batch["atoms"], batch["coords"], tok)
+    jhe, jhs, jlogits, jbad = JaxCOATI(jparams, jcfg).forward(*args, p_clip_emb_smi)
+    mine = COATI(model, tcfg)
+    assert COATI.forward_dist is COATI.forward
+    he, hs, logits, bad = mine.forward_dist(*args, p_clip_emb_smi)
+    assert logits.requires_grad and logits.device == mine.device
+    _close(he, jhe)
+    _close(hs, jhs)
+    _close(logits, jlogits, atol=1e-4)  # 32-wide sums into logits of order 10
+    assert bad.tolist() == np.asarray(jbad).tolist()
+
+
+def test_load_offline_loss_reads_the_document_s_curves(tmp_path):
+    from coati_tpu.models.io import load_offline_loss as jax_load_offline_loss
+
+    from coati_tpu_torch.models.io import load_offline_loss
+    from coati_tpu_torch.models.io import serialize_model as port_serialize
+
+    curves = {"batch_losses": [{"step": 0, "value": 2.5}], "ar_losses": [], "clip_losses": []}
+    path = tmp_path / "doc.pkl"
+    path.write_bytes(port_serialize(train_args={}, dataset_summary={}, model_state={},
+                                    model_kwargs={}, offline_loss=curves))
+    assert load_offline_loss(str(path)) == jax_load_offline_loss(str(path)) == curves
+
+
 def test_forward_fp_matches_jax():
     tok = hp.tokenizer(32)
     fp_map = (("morgan", 24), ("maccs", 7))

@@ -334,8 +334,39 @@ def test_config_model_kwargs_and_flops_follow_coati_tpu():
     for field, value in (("parallel_mode", "shard_map"), ("param_sharding", "fsdp")):
         with pytest.raises(NotImplementedError, match="one device"):
             tt2.train_coati2(tt2.Coati2TrainConfig(**{field: value}), None, device="cpu")
-    with pytest.raises(NotImplementedError, match="orbax_dir"):
-        tt2.train_coati2(tt2.Coati2TrainConfig(orbax_dir="x"), None, device="cpu")
+    tt2.Coati2TrainConfig(orbax_dir="x").check_single_device()  # restarts are ported
+
+
+def test_train_coati2_restarts_from_its_checkpoint_bit_for_bit(tmp_path):
+    """train_coati2 with orbax_dir: a second run over the directory takes
+    no step, returns the checkpointed parameters, and its end-of-run
+    checkpoint holds the same parameters and optimizer state bit for bit,
+    with coati_tpu's counters (n_toks, epoch, global_step)."""
+    corpus = gzip.open(CORPUS, "rt").read().split()
+    ckpt = tmp_path / "ckpt"
+
+    def run():
+        config = tt2.Coati2TrainConfig(n_layer_xformer=1, n_hidden_xformer=32, embed_dim=32,
+                                       n_head=2, n_seq=48, n_direct_clr=8, batch_size=4,
+                                       n_epochs=1, lr=1e-3, orbax_dir=str(ckpt),
+                                       output_dir=str(tmp_path / "out"))
+        random.seed(3)
+        return tt2.train_coati2(config, SmilesRows(corpus[:8]), device="cpu",
+                                max_steps_per_epoch=2)
+
+    first, results = run()
+    assert len(results["history"]) == 2
+    saved = hp.restart_states(ckpt)
+    assert sorted(saved) == [2]
+    counters = saved[2]["state"]["counters"].tolist()
+    assert counters[0] > 0 and counters[1:] == [1, 2]
+    second, again = run()
+    assert again["history"] == []
+    for (name, p), q in zip(first.named_parameters(), second.parameters()):
+        assert torch.equal(p, q), name
+    saved = hp.restart_states(ckpt)
+    assert sorted(saved) == [2, 3]
+    hp.assert_same_state(saved[3]["state"], saved[2]["state"])
 
 
 @pytest.mark.parametrize("steps", [1, 3])

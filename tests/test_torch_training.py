@@ -33,6 +33,9 @@ from coati_tpu.tokenizers.trie_tokenizer import TrieTokenizer as JaxTokenizer
 from coati_tpu.training import config as jconfig
 from coati_tpu.training import flops as jflops
 from coati_tpu.training import train as jtrain
+from coati_tpu.training.checkpoints import CheckpointManager as JaxCheckpointManager
+from coati_tpu.training.diagnostics import checkify_nan_guard as jax_nan_guard
+from coati_tpu.training.diagnostics import compiled_cost as jax_compiled_cost
 
 from coati_tpu_torch.data import fixture_dataset, load_points_fixture
 from coati_tpu_torch.data.batch_pipe import batch_rows
@@ -45,7 +48,14 @@ from coati_tpu_torch.tokenizers.trie_tokenizer import TrieTokenizer
 from coati_tpu_torch.training import config as tconfig
 from coati_tpu_torch.training import flops as tflops
 from coati_tpu_torch.training import train as ttrain
-from coati_tpu_torch.training.diagnostics import finite_check, step_timer
+from coati_tpu_torch.training.checkpoints import CheckpointManager
+from coati_tpu_torch.training.diagnostics import (
+    checkify_nan_guard,
+    compiled_cost,
+    finite_check,
+    profile_trace,
+    step_timer,
+)
 from coati_tpu_torch.training.logger import COATILogger
 from tests import torch_port_helpers as hp
 
@@ -78,11 +88,14 @@ def test_more_than_one_device_is_refused(field, value):
 
 
 def test_orbax_dir_and_a_missing_card_are_refused(monkeypatch, tmp_path):
-    with pytest.raises(NotImplementedError, match="orbax_dir"):
-        ttrain.train_autoencoder(tconfig.TrainConfig(orbax_dir=str(tmp_path)), None, device="cpu")
+    """Without a card and without a device the trainer refuses to run, with
+    or without a restart directory, and writes nothing there first."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ttrain.train_autoencoder(tconfig.TrainConfig(), None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ttrain.train_autoencoder(tconfig.TrainConfig(orbax_dir=str(tmp_path / "ckpt")), None)
+    assert not (tmp_path / "ckpt").exists()
 
 
 def test_model_config_follows_coati_tpu_but_for_the_attention_kernel():
@@ -524,6 +537,126 @@ def test_step_timer_finite_check_and_flops():
     assert tflops.transformer_pass_flops(16, 256, 160, 80) == jflops.transformer_pass_flops(
         16, 256, 160, 80)
     assert tflops.egnn_pass_flops(5, 256, 160, 96) == jflops.egnn_pass_flops(5, 256, 160, 96)
+
+
+def test_profile_trace_compiled_cost_and_nan_guard_follow_coati_tpu(tmp_path):
+    """profile_trace writes a trace file; compiled_cost counts a matmul's
+    FLOPs as coati_tpu's XLA cost model does (bytes: NaN, not measured
+    eagerly) and hands back the function; checkify_nan_guard raises where
+    coati_tpu's does and passes the outputs through where it does not."""
+    x = np.random.default_rng(0).normal(size=(64, 48)).astype(np.float32)
+    y = np.random.default_rng(1).normal(size=(48, 32)).astype(np.float32)
+    with profile_trace(str(tmp_path / "trace")):
+        torch.tensor(x) @ torch.tensor(y)
+    assert glob.glob(str(tmp_path / "trace" / "*.pt.trace.json"))
+    fn, cost = compiled_cost(torch.matmul, torch.tensor(x), torch.tensor(y))
+    _, ref = jax_compiled_cost(jax.jit(jnp.matmul), jnp.asarray(x), jnp.asarray(y))
+    assert fn is torch.matmul
+    assert cost["flops"] == ref["flops"] == 2 * 64 * 48 * 32
+    assert np.isnan(cost["bytes_accessed"])
+
+    def log_of(a):
+        return {"out": (torch.log(a) if isinstance(a, torch.Tensor) else jnp.log(a)), "n": 3}
+
+    for values, bad in (([1.0, 2.0], False), ([1.0, -1.0], True)):
+        if bad:
+            with pytest.raises(FloatingPointError, match="non-finite"):
+                checkify_nan_guard(log_of)(torch.tensor(values))
+            with pytest.raises(Exception, match="nan"):
+                jax_nan_guard(log_of)(jnp.asarray(values))
+        else:
+            out = checkify_nan_guard(log_of)(torch.tensor(values))
+            ref = jax_nan_guard(log_of)(jnp.asarray(values))
+            hp.close(out["out"], np.asarray(ref["out"]))
+
+
+# --------------------------------------------------------- restart checkpoints
+
+
+def test_checkpoint_manager_keeps_coati_tpu_s_steps(tmp_path):
+    """One save sequence through the port's manager and coati_tpu's (over
+    orbax): the same latest step and kept steps after every save (a stale
+    save skipped, a save at the latest step written as the next), the same
+    restored values; a stray temporary file is ignored; an empty directory
+    restores None."""
+    mine = CheckpointManager(str(tmp_path / "mine"), max_to_keep=3)
+    ref = JaxCheckpointManager(str(tmp_path / "ref"), max_to_keep=3)
+    assert mine.latest_step() is None and mine.restore_latest({}) is None
+    for step in (0, 1, 1, 3, 2, 5, 5, 7):
+        value = np.full((3,), float(step), np.float32)
+        mine.save(step, {"w": torch.tensor(value), "counters": torch.tensor([step, 1])},
+                  metadata={"step": step})
+        ref.save(step, {"w": value, "counters": np.asarray([step, 1], np.int64)})
+        ref.wait()
+        assert mine.latest_step() == ref.latest_step()
+        assert mine.all_steps() == list(ref._mgr.all_steps())
+    (tmp_path / "mine" / "9.pt.tmp-123").write_bytes(b"half a checkpoint")
+    assert mine.latest_step() == 7 and mine.all_steps() == [5, 6, 7]
+    template = {"w": torch.zeros(3), "counters": torch.zeros((2,), dtype=torch.int64)}
+    got = mine.restore_latest(template)
+    want = ref.restore_latest({"w": np.zeros(3, np.float32), "counters": np.zeros(2, np.int64)})
+    assert all(isinstance(v, torch.Tensor) for v in got.values())
+    np.testing.assert_array_equal(got["w"].numpy(), want["w"])
+    np.testing.assert_array_equal(got["counters"].numpy(), want["counters"])
+    mine.close()
+    ref.close()
+
+
+def test_train_autoencoder_restarts_from_its_checkpoint_bit_for_bit(tmp_path):
+    """A run with orbax_dir writes a checkpoint at the document cadence and
+    at its end; a second run over the directory takes no step and returns
+    the checkpointed parameters, and its own end-of-run checkpoint (written
+    as the next step) holds the same parameters and optimizer state, bit for
+    bit."""
+    ckpt = tmp_path / "ckpt"
+    config = _tiny_config(tmp_path, orbax_dir=str(ckpt), ngrad_to_save=3)
+    first, results = ttrain.train_autoencoder(config, TinySyntheticDataset(), device="cpu",
+                                              max_steps_per_epoch=3)
+    assert len(results["history"]) == 3
+    saved = hp.restart_states(ckpt)
+    assert sorted(saved) == [2, 3]  # after step 2 (4 > 3 rows), and the end
+    # n_toks, ngrad_updates (since the last cadence save), epoch, global_step
+    end, mid = (saved[k]["state"]["counters"].tolist() for k in (3, 2))
+    assert end[0] > mid[0] > 0 and end[1:] == [2, 1, 3] and mid[1:] == [0, 0, 2]
+    for name, p in first.named_parameters():
+        assert torch.equal(saved[3]["state"]["params"][name], p.detach()), name
+    assert saved[3]["state"]["opt_state"]["state"]
+
+    second, again = ttrain.train_autoencoder(_tiny_config(tmp_path, orbax_dir=str(ckpt),
+                                                          ngrad_to_save=3),
+                                             TinySyntheticDataset(), device="cpu",
+                                             max_steps_per_epoch=3)
+    assert again["history"] == [] and again["learning_rates"] == []
+    for (name, p), q in zip(first.named_parameters(), second.parameters()):
+        assert torch.equal(p, q), name
+    saved = hp.restart_states(ckpt)
+    assert sorted(saved) == [2, 3, 4]
+    hp.assert_same_state(saved[4]["state"], saved[3]["state"])
+
+
+def test_resumed_run_takes_the_unbroken_run_s_learning_rates(tmp_path):
+    """With a per-step warmup: a run of one epoch, then a run of two over
+    its checkpoint, which starts at epoch 1 with global_step carried on:
+    its learning rates are those of an unbroken two-epoch run at the same
+    steps."""
+    unbroken = _tiny_config(tmp_path / "a", n_epochs=2, lr_warmup_steps=5)
+    _, whole = ttrain.train_autoencoder(unbroken, TinySyntheticDataset(), device="cpu",
+                                        max_steps_per_epoch=2)
+    assert len(whole["learning_rates"]) == 4
+    ckpt = str(tmp_path / "ckpt")
+    _, head = ttrain.train_autoencoder(
+        _tiny_config(tmp_path / "b", n_epochs=1, lr_warmup_steps=5, orbax_dir=ckpt),
+        TinySyntheticDataset(), device="cpu", max_steps_per_epoch=2)
+    _, tail = ttrain.train_autoencoder(
+        _tiny_config(tmp_path / "b", n_epochs=2, lr_warmup_steps=5, orbax_dir=ckpt),
+        TinySyntheticDataset(), device="cpu", max_steps_per_epoch=2)
+    assert head["learning_rates"] == whole["learning_rates"][:2]
+    assert tail["learning_rates"] == whole["learning_rates"][2:]
+    assert {h[1] for h in tail["history"] if h[0] == "train"} == {1}
+    # the cosine schedule of two epochs at epoch 1, the warmup at steps 3 and 4
+    lr = unbroken.lr
+    assert tail["learning_rates"] == pytest.approx(
+        [0.5 * lr * (1 + np.cos(np.pi / 2)) * s / 5 for s in (3, 4)], rel=1e-12)
 
 
 # ------------------------------------------------------------- end to end

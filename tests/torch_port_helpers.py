@@ -1,7 +1,10 @@
 """Shared pieces of the tests that hold coati_tpu_torch's gradients and
 training against coati_tpu on the CPU: one small random COATI in both
 packages with the same weights, the map from a JAX gradient pytree to the
-port's parameter names, and the comparison of the two."""
+port's parameter names, the comparison of the two, and the reader of a
+restart-checkpoint directory."""
+
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -117,3 +120,24 @@ def jax_batch(batch):
     import jax.numpy as jnp
 
     return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def restart_states(directory):
+    """{step: saved payload} of a restart-checkpoint directory."""
+    return {int(p.stem): torch.load(p, weights_only=True) for p in Path(directory).glob("*.pt")}
+
+
+def assert_same_state(a, b):
+    """Equal nests, every tensor equal bit for bit."""
+    if isinstance(a, dict):
+        assert a.keys() == b.keys()
+        for k in a:
+            assert_same_state(a[k], b[k])
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            assert_same_state(x, y)
+    elif isinstance(a, torch.Tensor):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    else:
+        assert a == b
