@@ -141,7 +141,35 @@ number is taken.
     128), a closed-form density over the fixture's 1,024 SMILES with 64
     draws force-decoded (the valid share), one epoch of
     estimate_density_batchwise at batch 1024; seconds of each.
-12. report: the card's name and power limit, one `kernels` JSON line, and
+12. serving: the HTTP server (coati_tpu_torch/serving/server.py) on
+    127.0.0.1, warmed up before traffic. fp32: /embed of 64 corpus SMILES
+    must equal in-process encode_tokens within 1e-5, and greedy (k 1)
+    /generate through the micro-batcher and through the continuous engine
+    must agree on at least 63 of 64 rows. The production setting (bf16,
+    int8 KV cache, k 100, inverse temperature 2) behind the micro-batcher,
+    8 client threads over urllib: /embed of the first 1,024 corpus SMILES
+    that fit n_seq in requests of 16, /generate of those embeddings, and
+    /analogs of bench.py's 16 SMILES (noise 0.3, 4 analogs each). Then
+    continuous mode with 64 slots: 256 single-row /generate requests at t =
+    0 (rows picked as scripts/bench_continuous.py picks them), and the same
+    rows in-process through the engine and in drain-the-batch cohorts of 64,
+    twice each; the engine's run traced (idle share, the ring attention's
+    share of the card time). COATI2 grande (phase coati2's document): the
+    fp32 checks, and 64 production requests in continuous mode. Every
+    response must be 200 and every row a string. requests/s, mol/s, p50 and
+    p99 per endpoint and mode. K2 and K1 held at the shapes and positions
+    the phase ran them.
+13. metadynamics: 4,096 corpus SMILES embedded by the trained document in
+    the production setting; train_due (the published widths: 256 features,
+    depth 4, 60 inducing points) against the port's Crippen logP, 2,000
+    steps of batch 512, on 7/8 of them, then remove_spectral_norm; held-out
+    RMSE (must be below the targets' spread) and calibration; the pure
+    walk of 120 steps from a held-out molecule without and with hills (the
+    checks of scripts/eval_metadynamics.py: the unbiased ascent never
+    decreases and improves, the hills displace the samples more); then
+    run_metadynamics from that molecule, 20 steps of 32 decodes. Seconds of
+    each; K2 and K1 int8 held at the shapes and positions it ran.
+14. report: the card's name and power limit, one `kernels` JSON line, and
     as the last line {"ok": true, "device": {...}}.
 
 Every number printed is measured in this run, on this card, except the
@@ -2489,10 +2517,416 @@ def phase_generative(model, tok):
     return counts
 
 
-def _profile(fn, label, wall_s, top=12):
+# ----------------------------------------------------------- serving
+
+# the serving phase's corpus rows (/embed, /generate), its requests at t = 0
+# to the continuous server, and the metadynamics phase's rows and DUE steps
+SERVING_ROWS = 1024
+CONTINUOUS_REQUESTS = 256
+TRACED_TICKS = 2  # engine ticks in the traced window of the continuous run
+DUE_ROWS = 4096
+DUE_STEPS = 2000
+
+
+def _post(port, path, body, timeout=600.0):
+    """POSTs `body` as JSON to the server on 127.0.0.1:port -> (the reply,
+    seconds). A reply other than 200 raises (urllib's HTTPError)."""
+    import urllib.request
+
+    request = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    start = time.perf_counter()
+    with urllib.request.urlopen(request, timeout=timeout) as resp:
+        check(resp.status == 200, f"{path}: status {resp.status}")
+        reply = json.loads(resp.read())
+    return reply, time.perf_counter() - start
+
+
+def _load(port, path, bodies, clients):
+    """Every body POSTed to `path` by `clients` threads at once -> (the
+    replies in order, each request's seconds, the load's wall seconds)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    start = time.perf_counter()
+    with ThreadPoolExecutor(clients) as pool:
+        out = list(pool.map(lambda body: _post(port, path, body), bodies))
+    return [r for r, _ in out], [s for _, s in out], time.perf_counter() - start
+
+
+def _rates(endpoint, n_rows, latencies, wall):
+    return {"endpoint": endpoint, "requests": len(latencies), "rows": n_rows, "wall_s": wall,
+            "requests_per_s": len(latencies) / wall, "mol_per_s": n_rows / wall,
+            "p50_s": float(np.percentile(latencies, 50)),
+            "p99_s": float(np.percentile(latencies, 99))}
+
+
+@contextlib.contextmanager
+def _server(model, tok, gen_params, max_bucket=256, **kw):
+    """A CoatiInferenceServer on 127.0.0.1, a free port, warmed up at
+    `max_bucket` rows; stopped on the way out."""
+    from coati_tpu_torch.serving import CoatiInferenceServer
+
+    server = CoatiInferenceServer(model, tok, host="127.0.0.1", port=0, **kw)
+    try:
+        server.warmup(max_bucket=max_bucket, gen_params=gen_params, verbose=False)
+        server.start()
+        yield server
+    finally:
+        server.stop()
+
+
+def _in_16s(rows):
+    return [rows[i : i + 16] for i in range(0, len(rows), 16)]
+
+
+def _serving_fidelity(model, tok, smiles, family):
+    """fp32: /embed of 64 SMILES in requests of 16 against in-process
+    encode_tokens (within 1e-5), and greedy (k 1) /generate of those
+    embeddings through the micro-batched and the continuous server, which
+    must agree on at least 63 rows. Returns the embeddings."""
+    ref = model.encode_tokens(_tokens(tok, smiles, tok.n_seq), tok).float().cpu().numpy()
+    bodies = [{"smiles": s} for s in _in_16s(smiles)]
+    with _server(model, tok, ((1, 1.0),), max_bucket=64, max_batch=64) as server:
+        replies, _, _ = _load(server.port, "/embed", bodies, 4)
+        emb = np.asarray([e for r in replies for e in r["embeddings"]], np.float32)
+        gen = [{"embeddings": h.tolist(), "k": 1, "inv_temp": 1.0} for h in _in_16s(emb)]
+        micro = [s for r in _load(server.port, "/generate", gen, 4)[0] for s in r["smiles"]]
+    with _server(model, tok, ((1, 1.0),), max_bucket=64, continuous=True, n_slots=64) as server:
+        cont = [s for r in _load(server.port, "/generate", gen, 4)[0] for s in r["smiles"]]
+    diff = float(np.abs(emb - ref).max())
+    agree = sum(a == b for a, b in zip(micro, cont))
+    emit({"phase": "serving_fp32", "model": family, "rows": len(smiles),
+          "embed_max_abs_diff": diff, "greedy_continuous_agree_with_micro_batched": agree,
+          "differing": [[a, b] for a, b in zip(micro, cont) if a != b]})
+    check(emb.shape == ref.shape and diff <= 1e-5,
+          f"serving {family}: /embed differs from encode_tokens by {diff}")
+    check(len(micro) == len(cont) == len(smiles)
+          and all(isinstance(s, str) for s in micro + cont),
+          f"serving {family}: a /generate row is not a string")
+    check(agree >= len(smiles) - 1,
+          f"serving {family}: greedy continuous agrees with micro-batched on {agree} rows")
+    return emb
+
+
+@contextlib.contextmanager
+def _annotated(module, name, label):
+    """Wraps module.name in a torch.profiler range called `label`."""
+    fn = getattr(module, name)
+
+    def call(*args, **kw):
+        with torch.profiler.record_function(label):
+            return fn(*args, **kw)
+
+    setattr(module, name, call)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def _engine_run(engine, h, max_steps=20_000):
+    """h's rows submitted to the engine at once and stepped to the end, in
+    this thread, as scripts/bench_continuous.py drives it -> (each row's
+    seconds to its harvest, each row's generated tokens, wall seconds)."""
+    rids = [engine.submit(row) for row in h]
+    done, lengths = {}, {}
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(max_steps):
+        if len(done) == len(rids):
+            break
+        engine.step()
+        now = time.perf_counter() - start
+        for rid, row in engine.pop_results().items():
+            done[rid] = now
+            lengths[rid] = len(row) - len(engine.prefix)
+    check(len(done) == len(rids), f"continuous engine: {len(done)} of {len(rids)} rows ended")
+    return ([done[r] for r in rids], [lengths[r] for r in rids],
+            time.perf_counter() - start)
+
+
+def _drain_run(prod, tok, h, cohort=64):
+    """h's rows in drain-the-batch cohorts of `cohort` through the sampler
+    (what the micro-batcher calls) -> (each row's seconds to its cohort's
+    end, each row's generated tokens, wall seconds)."""
+    latencies, lengths = [], []
+    p = len(tok.tokenize_text("[CLIP][UNK][SMILES]", pad=False))
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for i in range(0, len(h), cohort):
+        _, rows = prod.hclip_to_2d_batch(h[i : i + cohort], tok, k=100, inv_temp=2.0,
+                                         keep_special=True, return_tokens=True)
+        now = time.perf_counter() - start
+        latencies += [now] * len(rows)
+        lengths += [(r.index(tok.stop_token) + 1 if tok.stop_token in r else len(r)) - p
+                    for r in rows]
+    return latencies, lengths, time.perf_counter() - start
+
+
+def _engine_window(engine, h, trace=None):
+    """h's rows submitted to the engine at once; one tick untimed, then
+    TRACED_TICKS ticks timed (inside `trace(fn)` when given), all 64 slots
+    busy while the queue lasts; then the rest drained, untimed -> (the
+    window's wall seconds or what `trace` returns, its decode steps, its
+    segments)."""
+    for row in h:
+        engine.submit(row)
+    engine.step()
+
+    def window():
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(TRACED_TICKS):
+            engine.step()
+        torch.cuda.synchronize()
+        return time.perf_counter() - start
+
+    steps0, segments0 = engine.decode_steps, engine.segments
+    out = window() if trace is None else trace(window)
+    steps, segments = engine.decode_steps - steps0, engine.segments - segments0
+    engine.run_until_done()
+    check(engine.n_active == 0 and len(engine.pop_results()) == len(h),
+          f"continuous engine: {engine.n_active} rows left after the window")
+    return out, steps, segments
+
+
+def _continuous_vs_drain(prod, tok, emb, family, n_requests):
+    """`n_requests` rows of `emb`, picked by default_rng(0) as
+    scripts/bench_continuous.py picks them, sent at t = 0 as single-row
+    /generate requests to the production server in continuous mode (64
+    slots); then the same rows in this thread through that server's engine
+    and in drain-the-batch cohorts of 64, twice each, alternating; and a
+    window of TRACED_TICKS engine ticks under that load timed, then traced
+    (idle share and ring attention share are ratios over the window)."""
+    from coati_tpu_torch.models import transformer
+
+    pick = np.random.default_rng(0).integers(0, len(emb), size=n_requests)
+    h = emb[pick]
+    bodies = [{"embeddings": [row.tolist()], "k": 100, "inv_temp": 2.0} for row in h]
+    with _server(prod, tok, ((100, 2.0),), continuous=True, n_slots=64) as server:
+        replies, latencies, wall = _load(server.port, "/generate", bodies, n_requests)
+        service = server._gen_batchers[(100, 2.0, None)]
+    rows = [s for r in replies for s in r["smiles"]]
+    check(len(rows) == n_requests and all(isinstance(s, str) for s in rows),
+          f"serving {family}: a continuous /generate row is not a string")
+    engine = service.engine  # its stepping thread ended with the server
+    http = _rates("/generate continuous", n_requests, latencies, wall)
+    runs = {"drain": [], "continuous": []}
+    for _ in range(2):
+        for mode in runs:
+            lat, lengths, wall = (_drain_run(prod, tok, h) if mode == "drain"
+                                  else _engine_run(engine, h))
+            runs[mode].append({**_rates(mode, n_requests, lat, wall),
+                               "gen_len_mean": float(np.mean(lengths)),
+                               "gen_len_p99": float(np.percentile(lengths, 99)),
+                               "gen_len_max": int(max(lengths))})
+    window_s, _, _ = _engine_window(engine, h)
+    label = f"{family}_continuous_{n_requests}_{TRACED_TICKS}_ticks"
+    with _annotated(transformer, "decode_attention_quant_ring", "ring_attention"):
+        traced, steps, segments = _engine_window(engine, h, trace=lambda window: _profile(
+            window, label, window_s, annotations=("ring_attention",)))
+    ring_s = traced["annotations"]["ring_attention"] / 1e3
+    check(steps > 0 and ring_s > 0, f"serving {family}: the traced window ran {steps} decode "
+          f"steps and {ring_s} s of ring attention")
+    result = {"phase": "serving_continuous", "model": family, "requests": n_requests,
+              "slots": 64, "http": http, "in_process": runs,
+              "traced_ticks": TRACED_TICKS, "window_s": window_s,
+              "decode_steps_traced_window": steps, "segments_traced_window": segments,
+              "idle_share": traced["idle_share"], "device_busy_s": traced["device_busy_s"],
+              "ring_attention_device_s": ring_s,
+              "ring_attention_share": ring_s / traced["device_busy_s"]}
+    emit(result)
+    return result
+
+
+def phase_serving(model, prod, tok):
+    """The HTTP server over the trained document, the continuous engine
+    against drain-the-batch cohorts, and COATI2 in continuous mode; K2 and
+    K1 then held at the shapes and positions the phase ran them. Returns the
+    launch counts of the path."""
+    from coati_tpu_torch.models.coati2 import COATI2
+    from coati_tpu_torch.models.io import load_coati2
+
+    smiles = _coati2_corpus(tok, SERVING_ROWS)
+    check(len(smiles) == SERVING_ROWS, f"serving: {len(smiles)} corpus SMILES fit n_seq")
+    seconds, mark = {}, [time.perf_counter()]
+
+    def lap(label):
+        now = time.perf_counter()
+        seconds[label] = now - mark[0]
+        mark[0] = now
+
+    with record_shapes() as (full, decode):
+        _zero_counts()  # the path starts here
+        _serving_fidelity(model, tok, smiles[:64], "coati")
+        lap("coati_fp32")
+
+        # the production setting behind the micro-batcher, 8 clients
+        loads = []
+        with _server(prod, tok, ((100, 2.0),)) as server:
+            replies, lat, wall = _load(server.port, "/embed",
+                                       [{"smiles": s} for s in _in_16s(smiles)], 8)
+            emb = np.asarray([e for r in replies for e in r["embeddings"]], np.float32)
+            loads.append(_rates("/embed", len(smiles), lat, wall))
+            replies, lat, wall = _load(server.port, "/generate", [
+                {"embeddings": h.tolist(), "k": 100, "inv_temp": 2.0} for h in _in_16s(emb)], 8)
+            generated = [s for r in replies for s in r["smiles"]]
+            loads.append(_rates("/generate", len(generated), lat, wall))
+            replies, lat, wall = _load(server.port, "/analogs", [
+                {"smiles": [s], "noise_scale": 0.3, "n_analogs": 4} for s in BENCH_SMILES], 8)
+            analogs = [a for r in replies for group in r["analogs"] for a in group]
+            loads.append(_rates("/analogs", len(analogs), lat, wall))
+        check(emb.shape == (SERVING_ROWS, prod.embed_dim) and np.isfinite(emb).all(),
+              "serving: /embed rows")
+        check(len(generated) == SERVING_ROWS and all(isinstance(s, str) for s in generated),
+              "serving: a /generate row is not a string")
+        check(len(analogs) == 64 and all(isinstance(s, str) for s in analogs),
+              "serving: an /analogs row is not a string")
+        emit({"phase": "serving_micro_batched", "model": "coati", "dtype": "bfloat16",
+              "kv": "int8/float32", "clients": 8, "rows_per_request": 16, "loads": loads,
+              "generated_sample": generated[:8], "analogs_sample": analogs[:8]})
+        lap("coati_micro_batched")
+        _continuous_vs_drain(prod, tok, emb, "coati", CONTINUOUS_REQUESTS)
+        lap("coati_continuous_vs_drain")
+
+        # COATI2 grande, seeded fresh weights (phase coati2's document)
+        m2, tok2 = load_coati2(str(COATI2_DOC))
+        smiles2 = _coati2_corpus(tok2, 64)
+        emb2 = _serving_fidelity(m2, tok2, smiles2, "coati2")
+        lap("coati2_fp32")
+        prod2 = COATI2(m2.params, m2.config.replace(dtype="bfloat16"), seed=0)
+        with _server(prod2, tok2, ((100, 2.0),), continuous=True, n_slots=64) as server:
+            replies, lat, wall = _load(server.port, "/generate", [
+                {"embeddings": [h.tolist()], "k": 100, "inv_temp": 2.0} for h in emb2], 64)
+        rows2 = [s for r in replies for s in r["smiles"]]
+        check(len(rows2) == 64 and all(isinstance(s, str) for s in rows2),
+              "serving coati2: a continuous /generate row is not a string")
+        emit({"phase": "serving_coati2_continuous", "dtype": "bfloat16", "kv": "int8/float32",
+              "slots": 64, **_rates("/generate continuous", 64, lat, wall)})
+        counts = _counts()  # and ends here
+        lap("coati2_continuous")
+    check(counts["flash_causal_attention"] > 0 and counts["decode_attention_quant"] > 0
+          and counts["decode_attention"] > 0, f"serving: launches {counts}")
+    hold_path_shapes("serving", full)
+    hold_decode_positions("serving", decode)
+    lap("held_shapes")
+    emit({"phase": "serving", "launches": counts, "seconds": seconds})
+    return counts
+
+
+# ------------------------------------------------------ metadynamics
+
+
+def phase_metadynamics(prod, tok):
+    """DUE regression of the port's Crippen logP on 4,096 corpus embeddings
+    of the trained document (published widths, 2,000 steps of batch 512),
+    the pure embedding-space walk without and with hills (the checks of
+    scripts/eval_metadynamics.py), and run_metadynamics from a corpus
+    molecule in the production setting. Returns the launch counts."""
+    import multiprocessing
+
+    from coati_tpu_torch.chem.crippen import mol_logp
+    from coati_tpu_torch.generative.metadynamics import (
+        MetadynamicsConfig,
+        due_objective,
+        run_metadynamics,
+        walk_embedding_space,
+    )
+    from coati_tpu_torch.regression.due import DueConfig, train_due
+
+    smiles = _coati2_corpus(tok, DUE_ROWS)
+    check(len(smiles) == DUE_ROWS, f"metadynamics: {len(smiles)} corpus SMILES fit n_seq")
+    start = time.perf_counter()
+    with multiprocessing.get_context("fork").Pool(max(1, min(8, os.cpu_count() - 1))) as pool:
+        y = np.asarray(pool.map(mol_logp, smiles, chunksize=64), np.float32)
+    logp_s = time.perf_counter() - start
+    seconds = {"crippen_logp_host": logp_s}
+
+    def timed(label, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[label] = time.perf_counter() - t0
+        return out
+
+    with record_shapes() as (full, decode):
+        _zero_counts()  # the path starts here
+        x = timed("embed", lambda: np.concatenate([
+            prod.encode_tokens(_tokens(tok, smiles[i : i + 1024], tok.n_seq), tok)
+            .float().cpu().numpy() for i in range(0, DUE_ROWS, 1024)]))
+        order = np.random.default_rng(0).permutation(DUE_ROWS)
+        train, test = order[: DUE_ROWS * 7 // 8], order[DUE_ROWS * 7 // 8 :]
+        config = DueConfig(input_dim=x.shape[1])
+        due = timed("due_fit", lambda: train_due(x[train], y[train], config=config,
+                                                 steps=DUE_STEPS, batch_size=512, seed=0,
+                                                 verbose=False, device=prod.device))
+        due = due.remove_spectral_norm()
+        mean, std = due.predict(x[test])
+        noise = float(due.params.gp.log_noise.detach().exp())
+        z = (y[test] - mean) / np.sqrt(std**2 + noise)
+        rmse = float(np.sqrt(np.mean((mean - y[test]) ** 2)))
+
+        objective = due_objective(due)
+        v0 = x[test[0]]
+        base = dict(steps=120, step_size=0.02, noise_scale=0.0, seed=0)
+        pos_un, obj_un = timed("walk_unbiased_120", lambda: walk_embedding_space(
+            objective, v0, MetadynamicsConfig(**base, hill_height=0.0), device=prod.device))
+        pos_bi, obj_bi = timed("walk_biased_120", lambda: walk_embedding_space(
+            objective, v0, MetadynamicsConfig(**base, hill_height=0.5, hill_width=1.0),
+            device=prod.device))
+        found = timed("run_metadynamics_20", lambda: run_metadynamics(
+            prod, tok, objective, v0,
+            MetadynamicsConfig(steps=20, decode_batch=32, k=100, inv_temp=2.0, seed=0)))
+        counts = _counts()  # and ends here
+
+    disp_un = np.linalg.norm(np.diff(pos_un, axis=0), axis=1)
+    disp_bi = np.linalg.norm(np.diff(pos_bi, axis=0), axis=1)
+    monotone = bool(np.all(np.diff(obj_un) >= -1e-5))
+    improved = bool(obj_un[-1] > obj_un[0] + 1e-4)
+    emit({"phase": "metadynamics", "doc": DOC.name, "dtype": "bfloat16", "kv": "int8/float32",
+          "due": {"rows_train": len(train), "rows_test": len(test), "steps": DUE_STEPS,
+                  "batch": 512, "features": config.features, "depth": config.depth,
+                  "n_inducing": config.n_inducing, "coeff": config.coeff,
+                  "target": "Crippen logP (coati_tpu_torch/chem/crippen.py)",
+                  "target_std_test": float(y[test].std()), "rmse_test": rmse,
+                  "coverage_95": float(np.mean(np.abs(z) <= 1.96)), "z_std": float(z.std()),
+                  "noise_var": noise},
+          "walk": {"steps": 120, "step_size": 0.02, "start": "held-out corpus molecule",
+                   "ascent_start": float(obj_un[0]), "ascent_final": float(obj_un[-1]),
+                   "ascent_monotone": monotone, "ascent_improved": improved,
+                   "mean_disp_unbiased": float(disp_un.mean()),
+                   "mean_disp_biased": float(disp_bi.mean()),
+                   "tail_disp_unbiased": float(disp_un[-60:].mean()),
+                   "tail_disp_biased": float(disp_bi[-60:].mean()),
+                   "biased_final_objective": float(obj_bi[-1])},
+          "run": {"steps": 20, "decode_batch": 32, "molecules_found": len(found.smiles),
+                  "best_smiles": found.best_smiles, "best_score": float(found.best_score),
+                  "start_smiles": smiles[test[0]], "start_logp": float(y[test[0]]),
+                  "n_valid_per_step": [h["n_valid"] for h in found.history]},
+          "seconds": seconds, "launches": counts})
+    check(np.isfinite(x).all() and np.isfinite(mean).all() and np.isfinite(std).all(),
+          "metadynamics: embeddings or DUE predictions not finite")
+    check(rmse < float(y[test].std()), f"metadynamics: DUE held-out RMSE {rmse} is not below "
+          f"the targets' spread {float(y[test].std())}")
+    check(monotone and improved, "metadynamics: the unbiased ascent decreased or did not improve")
+    check(disp_bi.mean() > disp_un.mean(), "metadynamics: hills do not displace the samples")
+    check(len(found.smiles) > 0 and np.isfinite(found.best_score),
+          "metadynamics: run_metadynamics found no molecule")
+    check(counts["flash_causal_attention"] > 0 and counts["decode_attention_quant"] > 0,
+          f"metadynamics: launches {counts}")
+    hold_path_shapes("metadynamics", full)
+    hold_decode_positions("metadynamics", decode)
+    return counts
+
+
+def _profile(fn, label, wall_s, top=12, annotations=()):
     """Device time by kernel over one call of fn (torch.profiler): the top
     kernels and every kernel of the port's own; and the card's idle share
-    against the call's unprofiled time."""
+    against the call's unprofiled time. `annotations` names record_function
+    ranges whose kernels' device time (ms) is reported too. Returns the
+    line it prints."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2501,10 +2935,11 @@ def _profile(fn, label, wall_s, top=12):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    averages = prof.key_averages()  # costly over a long trace: once
     # kernels only: an aten op's device time repeats that of its kernels, and
     # a user annotation on the device timeline (the optimizer's step) spans
     # the gaps between them
-    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+    rows = [(e.key, e.self_device_time_total, e.count) for e in averages
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
             and not getattr(e, "is_user_annotation", False)
             and not e.key.startswith("Optimizer.")]
@@ -2513,11 +2948,19 @@ def _profile(fn, label, wall_s, top=12):
     # the port's own kernels by name, whatever their rank (names from ptxas)
     ours = {k.split("<")[0] for log in build.BUILD_LOG.values() for k in ptxas_usage(log)}
     port = [r for r in rows if ours and re.search(r"\b(" + "|".join(ours) + r")\b", r[0])]
-    emit({"phase": "profile", "shape": label, "device_busy_s": busy_s,
-          "call_s": wall_s, "idle_share": 1 - busy_s / wall_s,
-          "kernel_launches": sum(c for _, _, c in rows),
-          "top_kernels": [{"name": n[:90], "ms": t / 1e3, "calls": c} for n, t, c in rows[:top]],
-          "port_kernels": [{"name": n[:90], "ms": t / 1e3, "calls": c} for n, t, c in port]})
+    # a range's own kernels and its children's, on the host side of the trace
+    ranges = {name: sum(e.device_time_total for e in averages
+                        if e.key == name and e.device_type == DeviceType.CPU) / 1e3
+              for name in annotations}
+    line = {"phase": "profile", "shape": label, "device_busy_s": busy_s,
+            "call_s": wall_s, "idle_share": 1 - busy_s / wall_s,
+            "kernel_launches": sum(c for _, _, c in rows),
+            "top_kernels": [{"name": n[:90], "ms": t / 1e3, "calls": c}
+                            for n, t, c in rows[:top]],
+            "port_kernels": [{"name": n[:90], "ms": t / 1e3, "calls": c} for n, t, c in port],
+            "annotations": ranges}
+    emit(line)
+    return line
 
 
 def main() -> int:
@@ -2580,6 +3023,10 @@ def main() -> int:
     prod = COATI(model.params, model.config.replace(dtype="bfloat16"), seed=0)
     paths["generative"] = phase_generative(prod, tok)
     lap("generative")
+    paths["serving"] = phase_serving(model, prod, tok)
+    lap("serving")
+    paths["metadynamics"] = phase_metadynamics(prod, tok)
+    lap("metadynamics")
     emit({"phase": "launches", "by_path": paths})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

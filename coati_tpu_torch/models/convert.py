@@ -15,6 +15,8 @@ whose state-dict keys and (out, in) weight layout are the reference's.
   * For COATI2: `coati2_state_from_coati_tpu` carries coati_tpu's
     Coati2Params (or their gradients), and `convert_coati2` loads a
     reference COATI_Smiles_Inference state dict.
+  * `due_from_coati_tpu` carries a coati_tpu DUE model (its parameters as
+    numpy and its config) into the port's DueModel.
 """
 
 from __future__ import annotations
@@ -293,3 +295,41 @@ def lora_from_coati_tpu(lora):
     return LoraParams({k: _tensor(v).float() for k, v in lora.a.items()},
                       {k: _tensor(v).float() for k, v in lora.b.items()},
                       rank=int(lora.rank), alpha=float(lora.alpha))
+
+
+# --------------------------------------------------------------------- DUE
+
+
+def due_from_coati_tpu(params_as_numpy, config_dict: Mapping[str, object], device=None):
+    """coati_tpu's DueParams with numpy (or JAX) leaves, as its DueModel.save
+    pickles them (`net` with first_w (in, out), first_b, res_w (depth, in,
+    out), res_b, u_first, u_res; `gp` with inducing, var_mean, var_chol and
+    the log scales), and its config's fields -> the port's DueModel on
+    `device` (the card unless the CPU is named). Weights are transposed to
+    (out, in); nested dicts of the same names are taken too."""
+    from coati_tpu_torch.common.util import resolve_device
+    from coati_tpu_torch.regression.due import DueConfig, DueModel, empty_params
+
+    def get(obj, name, default=None):
+        if isinstance(obj, Mapping):
+            return obj.get(name, default)
+        return getattr(obj, name, default)
+
+    net, gp = get(params_as_numpy, "net"), get(params_as_numpy, "gp")
+    config = DueConfig(**dict(config_dict))
+    state = {
+        "net.first.weight": _lin(get(net, "first_w")),
+        "net.first.bias": _tensor(get(net, "first_b")),
+        "net.u_first": _tensor(get(net, "u_first")),
+        "net.u_res": _tensor(get(net, "u_res")),
+        "gp.mean_const": _tensor(get(gp, "mean_const", np.zeros((), np.float32))),
+    }
+    for name in ("inducing", "var_mean", "var_chol", "log_lengthscale", "log_outputscale",
+                 "log_noise"):
+        state["gp." + name] = _tensor(get(gp, name))
+    for i, (w, b) in enumerate(zip(np.asarray(get(net, "res_w")), np.asarray(get(net, "res_b")))):
+        state[f"net.res.{i}.weight"] = _lin(w)
+        state[f"net.res.{i}.bias"] = _tensor(b)
+    params = empty_params(config)
+    params.load_state_dict({k: v.float() for k, v in state.items()}, strict=True)
+    return DueModel(params.to(resolve_device(device)), config)

@@ -11,7 +11,11 @@ weights in PyTorch's (out, in) layout; the functions below take it as
 Attention goes through the port's kernels: K2 (flash causal attention)
 for every full-sequence pass, encode and prefill alike, or K5f (the
 short-sequence kernel, T <= 128) under prefill_kernel="packed"; and K1
-(masked read decode attention) for every decode step. Both full-sequence
+(masked read decode attention) for every decode step of `decode_step`; the
+continuous-batching engine's steps with per-row positions
+(`decode_step_ring`, `decode_step_ragged`) read their caches through the
+plain PyTorch forms of ops/attention.py, as coati_tpu's do through XLA.
+Both full-sequence
 wrappers are differentiable: K5f's backward is the kernel K5b, K2's replays
 the plain attention. On CPU tensors the
 kernel wrappers run their plain versions. The config fields
@@ -33,6 +37,12 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from coati_tpu_torch.ops.attention import (
+    decode_attention_quant_ragged,
+    decode_attention_quant_ring,
+    decode_attention_ragged,
+    decode_attention_ring,
+)
 from coati_tpu_torch.ops.kernels.decode_attention import (
     decode_attention,
     decode_attention_quant,
@@ -403,12 +413,28 @@ def decode_step(
     then attend over [0, pos] (inclusive) against the cache. Returns
     (logits (B, V), cache)."""
     _check_kernel_fields(cfg)
+    cos_t, sin_t = _rotary(cfg, token.device)
+
+    def attend(layer, q, k, v):
+        _write_kv(cache, layer, pos, k, v)
+        if cache.scale is not None:
+            return decode_attention_quant(
+                q, cache.data[layer, 0], cache.scale[layer, 0],
+                cache.data[layer, 1], cache.scale[layer, 1], pos,
+            )
+        return decode_attention(q, cache.data[layer, 0], cache.data[layer, 1], pos)
+
+    return _decode_one(params, cfg, token, cos_t[pos], sin_t[pos], attend), cache
+
+
+def _decode_one(params: SmilesTransformer, cfg: TransformerConfig, token, cos1, sin1, attend):
+    """Logits (B, V) of one decode step: embed `token` (B,), then each
+    block with rotary (cos1, sin1) (shared (Dh,) or per-row (B, 1, Dh)) and
+    `attend(layer, q, k, v)` -> (B, H, Dh), which stores k, v in the cache
+    and reads it."""
     b = token.shape[0]
     h, dh = cfg.n_head, cfg.head_dim
     params = cast_floats(params, cfg.compute_dtype)
-    cos_t, sin_t = _rotary(cfg, token.device)
-    cos1, sin1 = cos_t[pos], sin_t[pos]
-
     table, norm = params.token_table()
     x = table[token]
     if norm is not None:
@@ -420,16 +446,81 @@ def decode_step(
         q, k, v = linear(y, blk.attn.c_attn.weight, blk.attn.c_attn.bias).split(cfg.n_embd, dim=-1)
         q = apply_rotary(q.reshape(b, h, dh), cos1, sin1)
         k = apply_rotary(k.reshape(b, h, dh), cos1, sin1)
-        v = v.reshape(b, h, dh)
-        _write_kv(cache, layer, pos, k, v)
-        if cache.scale is not None:
-            attn = decode_attention_quant(
-                q, cache.data[layer, 0], cache.scale[layer, 0],
-                cache.data[layer, 1], cache.scale[layer, 1], pos,
-            )
-        else:
-            attn = decode_attention(q, cache.data[layer, 0], cache.data[layer, 1], pos)
+        attn = attend(layer, q, k, v.reshape(b, h, dh))
         x = _block_tail(x, attn.reshape(b, cfg.n_embd), blk)
     lnf = params.transformer.ln_f
     x = layer_norm(x, lnf.weight, lnf.bias)
-    return linear(x, params.lm_head.weight), cache
+    return linear(x, params.lm_head.weight)
+
+
+def _rotary_rows(cfg: TransformerConfig, positions: torch.Tensor):
+    """Rotary tables gathered at each row's position, (B, 1, Dh)."""
+    cos_t, sin_t = _rotary(cfg, positions.device)
+    return cos_t[positions][:, None, :], sin_t[positions][:, None, :]
+
+
+def decode_step_ring(
+    params: SmilesTransformer,
+    cfg: TransformerConfig,
+    token: torch.Tensor,  # (B,)
+    lpos: torch.Tensor,  # (B,) per-row logical positions
+    ring_pos: int,  # the ring slot to write
+    cache: KVCache,
+):
+    """Ring-buffer decode step, the continuous-batching engine's hot loop
+    (serving/continuous.py). Rows sit at different logical depths, but
+    every row writes its K/V at the same ring slot `ring_pos`, an in-place
+    store at one index; per-row state enters through the rotary tables
+    gathered at `lpos` and the attention mask from ring-age arithmetic
+    (ops/attention.decode_attention_ring). Equals decode_step token for
+    token when positions are uniform and the ring has not wrapped. Returns
+    (logits (B, V), cache)."""
+    _check_kernel_fields(cfg)
+    cos_r, sin_r = _rotary_rows(cfg, torch.clamp(lpos, 0, cfg.n_seq - 1))
+
+    def attend(layer, q, k, v):
+        _write_kv(cache, layer, ring_pos, k, v)
+        if cache.scale is not None:
+            return decode_attention_quant_ring(
+                q, cache.data[layer, 0], cache.scale[layer, 0],
+                cache.data[layer, 1], cache.scale[layer, 1], ring_pos, lpos,
+            )
+        return decode_attention_ring(q, cache.data[layer, 0], cache.data[layer, 1], ring_pos,
+                                     lpos)
+
+    return _decode_one(params, cfg, token, cos_r, sin_r, attend), cache
+
+
+def decode_step_ragged(
+    params: SmilesTransformer,
+    cfg: TransformerConfig,
+    token: torch.Tensor,  # (B,)
+    pos: torch.Tensor,  # (B,) per-row positions
+    cache: KVCache,
+):
+    """decode_step with per-row positions: row b embeds token[b] at
+    position pos[b], stores its K/V there (index_put_ at (row, pos[row])),
+    and attends over [0, pos[b]]. Positions are clamped to the cache width,
+    so retired rows can keep flowing through while they wait for
+    replacement. Equals decode_step token for token when pos is constant.
+    Returns (logits (B, V), cache)."""
+    _check_kernel_fields(cfg)
+    pos = torch.clamp(pos, 0, cache.data.shape[3] - 1)
+    rows = torch.arange(token.shape[0], device=token.device)
+    cos_r, sin_r = _rotary_rows(cfg, pos)
+
+    def attend(layer, q, k, v):
+        if cache.scale is not None:
+            for i, x in ((0, k), (1, v)):
+                x8, xs = quantize_kv(x)
+                cache.data[layer, i].index_put_((rows, pos), x8)
+                cache.scale[layer, i].index_put_((rows, pos), xs.to(cache.scale.dtype))
+            return decode_attention_quant_ragged(
+                q, cache.data[layer, 0], cache.scale[layer, 0],
+                cache.data[layer, 1], cache.scale[layer, 1], pos,
+            )
+        cache.data[layer, 0].index_put_((rows, pos), k.to(cache.data.dtype))
+        cache.data[layer, 1].index_put_((rows, pos), v.to(cache.data.dtype))
+        return decode_attention_ragged(q, cache.data[layer, 0], cache.data[layer, 1], pos)
+
+    return _decode_one(params, cfg, token, cos_r, sin_r, attend), cache

@@ -7,7 +7,9 @@ for CPU tensors, and the tests and chip_smoke.py hold the kernels against
 them. Semantics of coati_tpu/ops/attention.py:
 scores scaled by 1/sqrt(Dh), causal or position mask, softmax, probs @ v.
 Layouts: q/k/v (B, T, H, Dh); decode query (B, H, Dh); caches
-(B, T, H, Dh); int8 scales (B, T, H).
+(B, T, H, Dh); int8 scales (B, T, H). The decode forms with per-row
+positions at the end (ragged, ring) serve the continuous-batching engine
+and have no kernel.
 """
 
 from __future__ import annotations
@@ -124,3 +126,101 @@ def decode_attention_quant(
     scores = scores.masked_fill(~valid, _NEG_INF)
     probs = torch.softmax(scores, dim=-1) * v_scale.float().transpose(1, 2)
     return torch.einsum("bhs,bshd->bhd", probs, v_data.float()).to(q1.dtype)
+
+
+# ------------------------------------------- per-row positions (serving)
+#
+# The continuous-batching engine (serving/continuous.py) decodes rows that
+# sit at different depths. These are plain PyTorch in the port as in
+# coati_tpu, where XLA computed them and no Pallas kernel did.
+
+
+def _scores_f32(q1, k_cache):
+    dh = q1.shape[-1]
+    return torch.einsum("bhd,bshd->bhs", q1, k_cache).float() * (1.0 / math.sqrt(dh))
+
+
+def _quant_scores(q1, k_data, k_scale):
+    dh = q1.shape[-1]
+    scores = torch.einsum("bhd,bshd->bhs", q1.float(), k_data.float())
+    return scores * k_scale.float().transpose(1, 2) * (1.0 / math.sqrt(dh))
+
+
+def _masked_read(scores, valid, v_cache):
+    """softmax over the (B, T) valid slots of scores (B, H, T), then the
+    probabilities against v_cache (B, T, H, Dh)."""
+    probs = torch.softmax(scores.masked_fill(~valid[:, None, :], _NEG_INF), dim=-1)
+    return torch.einsum("bhs,bshd->bhd", probs.to(v_cache.dtype), v_cache)
+
+
+def _masked_read_quant(scores, valid, v_data, v_scale, out_dtype):
+    probs = torch.softmax(scores.masked_fill(~valid[:, None, :], _NEG_INF), dim=-1)
+    probs = probs * v_scale.float().transpose(1, 2)
+    return torch.einsum("bhs,bshd->bhd", probs, v_data.float()).to(out_dtype)
+
+
+def _ragged_valid(t_max: int, pos: torch.Tensor) -> torch.Tensor:
+    return torch.arange(t_max, device=pos.device)[None, :] <= pos[:, None]
+
+
+def decode_attention_ragged(
+    q1: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, pos: torch.Tensor
+) -> torch.Tensor:
+    """decode_attention with per-row positions: row b attends over
+    [0, pos[b]]. pos: (B,) integer tensor. Same as decode_attention when
+    pos is constant across rows."""
+    return _masked_read(_scores_f32(q1, k_cache), _ragged_valid(k_cache.shape[1], pos), v_cache)
+
+
+def decode_attention_quant_ragged(
+    q1: torch.Tensor,
+    k_data: torch.Tensor,  # (B, T, H, Dh) int8
+    k_scale: torch.Tensor,  # (B, T, H)
+    v_data: torch.Tensor,
+    v_scale: torch.Tensor,
+    pos: torch.Tensor,  # (B,) per-row positions
+) -> torch.Tensor:
+    """decode_attention_quant with per-row positions; the scales factor
+    out as in the scalar-position form."""
+    scores = _quant_scores(q1, k_data, k_scale)
+    return _masked_read_quant(scores, _ragged_valid(k_data.shape[1], pos), v_data, v_scale,
+                              q1.dtype)
+
+
+def _ring_valid(ring_pos, lpos: torch.Tensor, t_max: int) -> torch.Tensor:
+    """(B, T) mask of live ring slots: slot s holds the key of age
+    (ring_pos - s) mod T; row b's history spans ages [0, lpos[b]]."""
+    ages = torch.remainder(ring_pos - torch.arange(t_max, device=lpos.device), t_max)
+    return ages[None, :] <= lpos[:, None]
+
+
+def decode_attention_ring(
+    q1: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    ring_pos,  # int: the slot just written (age 0)
+    lpos: torch.Tensor,  # (B,) the current token's logical position
+) -> torch.Tensor:
+    """Ring-buffer decode attention of the continuous-batching engine:
+    every row writes at the same ring slot per step, and a row's history is
+    selected by age: slot s holds the key of age (ring_pos - s) mod T, row b
+    attends ages [0, lpos[b]]. Equals decode_attention when the ring has not
+    wrapped and positions are uniform. Needs every row's history shorter
+    than T (the engine sizes the ring with a segment of slack)."""
+    valid = _ring_valid(ring_pos, lpos, k_cache.shape[1])
+    return _masked_read(_scores_f32(q1, k_cache), valid, v_cache)
+
+
+def decode_attention_quant_ring(
+    q1: torch.Tensor,
+    k_data: torch.Tensor,  # (B, T, H, Dh) int8
+    k_scale: torch.Tensor,  # (B, T, H)
+    v_data: torch.Tensor,
+    v_scale: torch.Tensor,
+    ring_pos,
+    lpos: torch.Tensor,
+) -> torch.Tensor:
+    """decode_attention_quant over a ring cache (see decode_attention_ring)."""
+    scores = _quant_scores(q1, k_data, k_scale)
+    return _masked_read_quant(scores, _ring_valid(ring_pos, lpos, k_data.shape[1]), v_data,
+                              v_scale, q1.dtype)

@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Sequence
@@ -43,6 +44,9 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # (ptxas resource usage), also kept beside each library as <library>.log
 BUILD_LOG: Dict[str, str] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# one build at a time within a process: threads that call a kernel for the
+# first time together (a server's batchers) would share a temporary file
+_LOAD_LOCK = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -101,9 +105,12 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of csrc/<name>.cu, built first if needed."""
     lib = _LIBS.get(name)
     if lib is None:
-        build((name,))
-        lib = ctypes.CDLL(str(library_path(name)))
-        _LIBS[name] = lib
+        with _LOAD_LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                build((name,))
+                lib = ctypes.CDLL(str(library_path(name)))
+                _LIBS[name] = lib
     return lib
 
 

@@ -8,6 +8,7 @@ from pathlib import Path
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from coati_tpu.models import coati as jco
@@ -19,6 +20,21 @@ from coati_tpu_torch.tokenizers import get_vocab
 from coati_tpu_torch.tokenizers.trie_tokenizer import TrieTokenizer
 
 ATOL, RTOL = 3e-5, 1e-4
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """torch's intra-op threads set to 1 for a module's tests, then restored.
+    These tests run many small ops; under the test runner's parallel
+    workers every worker's thread pool oversubscribes the cores, and each
+    op then waits on threads the scheduler has parked (six such files took
+    473 s with 6 workers against 150 s with one thread each)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
 
 
 def t(x, dtype=None):
