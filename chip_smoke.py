@@ -169,7 +169,26 @@ number is taken.
     decreases and improves, the hills displace the samples more); then
     run_metadynamics from that molecule, 20 steps of 32 decodes. Seconds of
     each; K2 and K1 int8 held at the shapes and positions it ran.
-14. report: the card's name and power limit, one `kernels` JSON line, and
+14. multi_device: multi-device training and sharded inference on the one
+    card. (a) World 1 over NCCL: one float32 step of the grande recipe at
+    full width (batch 160 of the fixture through the recipe's transform,
+    seeded clip-token choices) as train_autoencoder's step over a world-1
+    mesh, in both formulations ("pjit", "shard_map") and under FSDP, each
+    within the CPU tests' tolerance of the single-device step (losses 1e-5
+    relative; parameters 3 lr everywhere, 1e-3 lr for 99.9%); K3, K4, K5f
+    and K5b must launch; the bf16 step's seconds on one device and on the
+    world-1 mesh. (b) World 2 as two processes on the one card over gloo
+    (NCCL refuses two ranks on one device; gloo carries CUDA tensors): DP in
+    both formulations and FSDP on each rank's half of the batch, TP 2 on the
+    whole, each held to (a)'s single-device step (shard_map to the same
+    step with its per-half AR mean); FSDP's moment bytes a rank must be
+    about half of world 1's; the bf16 DP step's seconds (a test of
+    correctness, not of scaling). K5f and K5b at TP's 8 heads held against
+    their plain versions and timed. (c) ShardedCOATI over [cuda:0, cuda:0]
+    with the trained document: 1,024 corpus SMILES, fp32 greedy, every
+    token equal to the single-device decode; then a server with two
+    replicas answers /embed and /generate as the single-device model.
+15. report: the card's name and power limit, one `kernels` JSON line, and
     as the last line {"ok": true, "device": {...}}.
 
 Every number printed is measured in this run, on this card, except the
@@ -2921,6 +2940,377 @@ def phase_metadynamics(prod, tok):
     return counts
 
 
+# ------------------------------------------------------------- multi_device
+
+MD_LR = 5e-4  # the grande recipe's
+TRAINING_KERNELS = ("egnn_messages", "egnn_messages_backward", "packed_causal_attention",
+                    "packed_causal_attention_backward")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _md_config(dtype):
+    from coati_tpu_torch.training.config import grande_config
+
+    return grande_config(dtype=dtype, lr=MD_LR)
+
+
+def _md_batch(config, tok):
+    """One global batch of the grande recipe (160 fixture rows through
+    clip_ar_xform, seeded) as host arrays, and its clip-token choices."""
+    from coati_tpu_torch.data import fixture_dataset
+    from coati_tpu_torch.data.xform import clip_ar_xform
+
+    random.seed(0)
+    pipe = fixture_dataset(config.batch_size).get_data_pipe(
+        batch_size=config.batch_size,
+        xform_routine=lambda b: clip_ar_xform(
+            b, tokenizer=tok, p_dataset=config.p_dataset, p_formula=config.p_formula,
+            p_clip=config.p_clip, p_clip_cut=config.p_clip_cut,
+            p_randsmiles=config.p_randsmiles, rng=random.Random(0)))
+    host = next(iter(pipe))
+    batch = {k: np.asarray(host[k], np.int64) for k in ("raw_tokens", "tokens", "y_next", "atoms")}
+    batch["coords"] = np.asarray(host["coords"], np.float32)
+    batch["pick"] = (torch.rand(config.batch_size, generator=torch.Generator().manual_seed(0))
+                     > 0.5).numpy()
+    return batch
+
+
+def _md_rows(batch, lo, hi):
+    """Rows [lo, hi) of a host batch as device tensors, and their pick."""
+    from coati_tpu_torch.training import train
+
+    part = {k: v[lo:hi] for k, v in batch.items()}
+    return (train.batch_to_device(part, torch.device("cuda")),
+            torch.as_tensor(part["pick"], device="cuda"))
+
+
+def _md_step(config, mesh, placement_cls, mode):
+    """A fresh seeded grande model (seed 0), its placement over `mesh` (or
+    none) and train_autoencoder's step over them."""
+    from coati_tpu_torch.tokenizers import get_vocab
+    from coati_tpu_torch.tokenizers.trie_tokenizer import TrieTokenizer
+    from coati_tpu_torch.training import train
+
+    tok = TrieTokenizer(n_seq=config.n_seq, **get_vocab(config.tokenizer_vocab))
+    model_cfg = train.model_config_from_train_config(config, tok.n_token)
+    model = train.fresh_model(model_cfg, torch.device("cuda"), seed=0)
+    placement = placement_cls(mesh, model, config) if placement_cls else None
+    optimizer = placement.optimizer if placement else train.make_optimizer(config, model)
+    step = train.make_train_step(
+        model, model_cfg, optimizer, stop_token=tok.stop_token, unk_token=tok.unk_token,
+        p_clip_emb_smi=config.p_clip_emb_smi, token_entropy_unit=float(np.log2(tok.n_token)),
+        do_clip=config.do_clip, parallel=train.ParallelStep(placement, mode))
+    return step, placement, tok
+
+
+def _md_compare(label, losses, state, ref):
+    """A step's losses and gathered parameters against the reference's:
+    losses within 1e-5 relative, parameters within 3 lr everywhere and
+    1e-3 lr for 99.9% (the tolerance of the CPU tests' single-device
+    steps)."""
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"]))
+    diffs = torch.cat([(state[k].float().cpu() - ref["state"][k].float()).abs().flatten()
+                       for k in ref["state"]])
+    out = {"losses": losses, "loss_rel_diff": rel, "param_max_abs_diff": float(diffs.max()),
+           "share_within_1e-3_lr": float((diffs <= 1e-3 * MD_LR).float().mean())}
+    check(state.keys() == ref["state"].keys(), f"{label}: other parameters than the reference's")
+    check(rel <= 1e-5 and out["param_max_abs_diff"] <= 3 * MD_LR
+          and out["share_within_1e-3_lr"] >= 0.999,
+          f"{label}: the step differs from the single-device step: {out}")
+    return out
+
+
+def _moment_bytes(optimizer) -> int:
+    return sum(t.numel() * t.element_size() for s in optimizer.state.values()
+               for k, t in s.items() if k != "step")
+
+
+def _md_step_seconds(step, batch, pick, n=10, warmup=3) -> list:
+    times = []
+    for i in range(warmup + n):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        step(None, batch, pick_point=pick)
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append(time.perf_counter() - start)
+    return times
+
+
+def _md_rank(rank: int, world: int, port: int, root: str) -> None:
+    """One rank of the world-2 run on the one card (gloo carrying CUDA
+    tensors: NCCL refuses two ranks on one device). Each placement takes
+    one fp32 step of the global batch from the seeded model, DP and FSDP on
+    the rank's half, TP 2 on the whole; rank 0 writes the gathered states,
+    which the parent holds to phase (a)."""
+    import torch.distributed as dist
+
+    from coati_tpu_torch.parallel.fsdp import FullyShardedPlacement
+    from coati_tpu_torch.parallel.mesh import make_mesh
+    from coati_tpu_torch.parallel.placement import ReplicatedPlacement
+    from coati_tpu_torch.parallel.tp import TensorParallelPlacement, make_tp_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    try:
+        root = Path(root)
+        batch = dict(np.load(root / "batch.npz"))
+        dp = make_mesh(axis_names=("data",), device_type="cuda")
+        tp = make_tp_mesh(model_parallel=2, device_type="cuda")
+        config = _md_config("float32")
+        half = config.batch_size // 2
+        out = {"runs": {}}
+        for label, mesh, cls, mode, split in (
+                ("dp_pjit", dp, ReplicatedPlacement, "pjit", True),
+                ("dp_shard_map", dp, ReplicatedPlacement, "shard_map", True),
+                ("fsdp", dp, FullyShardedPlacement, "pjit", True),
+                ("tp2", tp, TensorParallelPlacement, "pjit", False)):
+            step, placement, _ = _md_step(config, mesh, cls, mode)
+            lo, hi = (rank * half, (rank + 1) * half) if split else (0, config.batch_size)
+            rows, pick = _md_rows(batch, lo, hi)
+            _zero_counts()
+            with record_shapes() as (full, _):
+                metrics = step(None, rows, pick_point=pick)
+                torch.cuda.synchronize()
+            state = placement.full_state()[0]
+            counts, moments = [None] * world, [None] * world
+            dist.all_gather_object(counts, _counts())
+            dist.all_gather_object(moments, _moment_bytes(placement.optimizer))
+            out["runs"][label] = {
+                "losses": [float(metrics[k]) for k in ("loss", "ar_loss", "clip_loss")],
+                "launches_per_rank": counts, "shapes": sorted(full),
+                "moment_bytes_per_rank": moments,
+                "state": {k: v.cpu() for k, v in state.items()} if rank == 0 else None}
+            del step, placement, state
+            torch.cuda.empty_cache()
+        # the bf16 DP step's seconds at world 2 on the one card
+        step, _, _ = _md_step(_md_config("bfloat16"), dp, ReplicatedPlacement, "pjit")
+        rows, pick = _md_rows(batch, rank * half, (rank + 1) * half)
+        out["bf16_dp_step_s"] = _md_step_seconds(step, rows, pick, n=5)
+        if rank == 0:
+            torch.save(out, root / "world2.pt")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_multi_device():
+    """Multi-device training and sharded inference on the one card.
+    (a) world 1 over NCCL: the grande step (16 x 256, EGNN 5 x 256, batch
+    160, n_seq 80) from one seeded model, in float32, as
+    train_autoencoder's step over a world-1 mesh in both formulations and
+    under FSDP, against the single-device step on the same batch and clip
+    choices; then the bf16 step's seconds, single-device against the
+    world-1 mesh (the cost of the collectives layer). (b) world 2 on the
+    one card (two processes over gloo, which carries CUDA tensors: NCCL
+    refuses two ranks on one device): DP in both formulations, FSDP and TP
+    2, each held to (a); the FSDP moments' bytes a rank; the bf16 DP step's
+    seconds (two processes sharing one card: a test of correctness, not of
+    scaling). K5f and K5b at TP's 8 heads against their plain versions.
+    (c) ShardedCOATI over [cuda:0, cuda:0] with the trained document: fp32
+    greedy decode of 1,024 SMILES embeddings, every token equal to the
+    single-device decode; then a server with two replicas answers /embed
+    and /generate as the single-device model. Returns the launch counts."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from coati_tpu_torch.parallel.fsdp import FullyShardedPlacement
+    from coati_tpu_torch.parallel.mesh import make_mesh
+    from coati_tpu_torch.parallel.placement import ReplicatedPlacement
+
+    total = collections.Counter()
+    config = _md_config("float32")
+    with tempfile.TemporaryDirectory() as work:
+        work = Path(work)
+        # ---- (a) world 1 over NCCL
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                                world_size=1)
+        try:
+            mesh = make_mesh(axis_names=("data",), device_type="cuda")
+            step, _, tok = _md_step(config, None, None, "pjit")
+            batch = _md_batch(config, tok)
+            rows, pick = _md_rows(batch, 0, config.batch_size)
+            metrics = step(None, rows, pick_point=pick)
+            ref = {"losses": [float(metrics[k]) for k in ("loss", "ar_loss", "clip_loss")],
+                   "state": {k: v.detach().cpu() for k, v in step.model.state_dict().items()}}
+            single_moments = _moment_bytes(step.optimizer)
+            del step
+            ref_shard_map = _shard_map_reference(config, rows, pick)
+            np.savez(work / "batch.npz", **batch)
+            world1 = {}
+            for label, cls, mode in (("dp_pjit", ReplicatedPlacement, "pjit"),
+                                     ("dp_shard_map", ReplicatedPlacement, "shard_map"),
+                                     ("fsdp", FullyShardedPlacement, "pjit")):
+                step, placement, _ = _md_step(config, mesh, cls, mode)
+                _zero_counts()
+                metrics = step(None, rows, pick_point=pick)
+                torch.cuda.synchronize()
+                counts = _counts()
+                total.update(counts)
+                losses = [float(metrics[k]) for k in ("loss", "ar_loss", "clip_loss")]
+                world1[label] = _md_compare(f"multi_device world 1 {label}", losses,
+                                            placement.full_state()[0], ref)
+                world1[label].update(launches=counts,
+                                     moment_bytes=_moment_bytes(placement.optimizer))
+                check(all(counts[k] > 0 for k in TRAINING_KERNELS),
+                      f"multi_device world 1 {label}: a training kernel did not launch: {counts}")
+                del step, placement
+            bf16 = _md_config("bfloat16")
+            step, _, _ = _md_step(bf16, None, None, "pjit")
+            single_s = _md_step_seconds(step, rows, pick)
+            del step
+            step, _, _ = _md_step(bf16, mesh, ReplicatedPlacement, "pjit")
+            mesh_s = _md_step_seconds(step, rows, pick)
+            del step
+        finally:
+            dist.destroy_process_group()
+        emit({"phase": "multi_device", "part": "world1_nccl", "batch": config.batch_size,
+              "T": int(batch["tokens"].shape[1]), "atoms": int(batch["atoms"].shape[1]),
+              "single_device_losses": ref["losses"], "single_device_moment_bytes": single_moments,
+              "runs": world1, "bf16_step_s_single_device": single_s,
+              "bf16_step_s_world1_mesh": mesh_s,
+              "bf16_step_median_s": [statistics.median(single_s), statistics.median(mesh_s)]})
+        torch.cuda.empty_cache()
+
+        # ---- (b) world 2 on the one card
+        start = time.perf_counter()
+        ctx = mp.spawn(_md_rank, args=(2, _free_port(), str(work)), nprocs=2, join=False)
+        try:
+            for proc in ctx.processes:
+                proc.join(600)
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join(10)
+        codes = [proc.exitcode for proc in ctx.processes]
+        check(codes == [0, 0], f"multi_device world 2: rank exit codes {codes}")
+        out = torch.load(work / "world2.pt", weights_only=False)
+        summary, shapes = {}, set()
+        for label, run in out["runs"].items():
+            for counts in run["launches_per_rank"]:
+                total.update(counts)
+                check(all(counts[k] > 0 for k in TRAINING_KERNELS),
+                      f"multi_device world 2 {label}: a training kernel did not launch on a "
+                      f"rank: {counts}")
+            shapes.update(tuple(s) for s in run["shapes"])
+            summary[label] = {"launches_per_rank": run["launches_per_rank"],
+                              "moment_bytes_per_rank": run["moment_bytes_per_rank"]}
+            want = ref_shard_map if label == "dp_shard_map" else ref
+            summary[label].update(_md_compare(f"multi_device world 2 {label}", run["losses"],
+                                              run["state"], want))
+        ratios = [b / world1["fsdp"]["moment_bytes"]
+                  for b in out["runs"]["fsdp"]["moment_bytes_per_rank"]]
+        emit({"phase": "multi_device", "part": "world2_one_card", "backend": "gloo",
+              "runs": summary, "fsdp_moment_bytes_per_rank_over_world1": ratios,
+              "bf16_dp_step_s": out["bf16_dp_step_s"],
+              "bf16_dp_step_median_s": statistics.median(out["bf16_dp_step_s"]),
+              "seconds": time.perf_counter() - start})
+        check(all(0.45 <= r <= 0.6 for r in ratios),
+              f"multi_device: FSDP moments a rank at world 2 are {ratios} of world 1's")
+        heads8 = {s for s in shapes if s[0].startswith("packed") and s[3] == 8}
+        check(heads8, "multi_device TP 2: no attention call at 8 heads")
+        hold_path_shapes("multi_device_tp", heads8 | {(*s[:5], "bfloat16") for s in heads8})
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        for name, b, t, h, dh, _ in sorted(heads8):
+            if name == "packed_causal_attention_backward":
+                case = _attention_bwd_case(b, t, h, dh, torch.bfloat16, gen)
+            else:
+                case = _attention_case(name, b, t, h, dh, torch.bfloat16, gen)
+            emit({"phase": "kernel", "held_for": "multi_device_tp_timed", **case})
+            check(case["ok"], f"multi_device TP 2: {name} at 8 heads is outside tolerance")
+
+    # ---- (c) sharded decode and a server with two replicas
+    total.update(_sharded_inference())
+    return dict(total)
+
+
+def _shard_map_reference(config, rows, pick):
+    """The "shard_map" step of two ranks, on one device: the mean of the
+    two halves' AR means, the clip loss over all rows, one AdamW step from
+    the seeded model (the world-2 shard_map run is held to it)."""
+    from coati_tpu_torch.models import coati as F
+
+    step, _, _ = _md_step(config, None, None, "pjit")
+    h_e3gnn, h_smiles, logits, bad = F.forward(
+        step.model, step.model_cfg, None, rows["raw_tokens"], rows["tokens"], rows["atoms"],
+        rows["coords"], step.stop_token, step.unk_token, step.p_clip_emb_smi, pick_point=pick)
+    half = config.batch_size // 2
+    y = rows["y_next"]
+    ar = 0.5 * (F.ar_loss_fn(logits[:half], y[:half]) + F.ar_loss_fn(logits[half:], y[half:]))
+    cl = F.clip_loss(h_smiles, h_e3gnn, bad)
+    loss = ar + cl * step.token_entropy_unit
+    loss.backward()
+    step.update()
+    return {"losses": [float(x.detach()) for x in (loss, ar, cl)],
+            "state": {k: v.detach().cpu() for k, v in step.model.state_dict().items()}}
+
+
+def _sharded_inference():
+    from coati_tpu_torch.parallel.inference import ShardedCOATI
+
+    model, tok = load_model()
+    corpus = [s for s in gzip.open(CORPUS, "rt").read().split()][:4096]
+    tokens = []
+    for s in corpus:
+        try:
+            row = tok.tokenize_text("[SMILES]" + s + "[STOP]", pad=True)
+        except (KeyError, ValueError):
+            continue
+        tokens.append(row)
+        if len(tokens) == SERVING_ROWS:
+            break
+    tokens = np.asarray(tokens)
+    h = model.encode_tokens(tokens, tok)
+    (single, single_s, _) = _timed(lambda: model.hclip_to_2d_batch(h, tok, k=1,
+                                                                   return_tokens=True))
+    sharded = ShardedCOATI(model, ["cuda:0", "cuda:0"])
+    _zero_counts()
+    h2, encode_s, _ = _timed(lambda: sharded.encode_tokens(tokens, tok))
+    out, decode_s, _ = _timed(lambda: sharded.hclip_to_2d_batch(h, tok, k=1,
+                                                                 return_tokens=True))
+    counts = _counts()
+    smiles, toks = single
+    equal_rows = sum(a == b for a, b in zip(out[1], toks))
+    emit({"phase": "multi_device", "part": "sharded_decode", "replicas": ["cuda:0", "cuda:0"],
+          "rows": len(tokens), "encode_max_abs_diff": float((h2 - h).abs().max()),
+          "rows_token_equal": equal_rows, "single_device_decode_s": single_s,
+          "sharded_encode_s": encode_s, "sharded_decode_s": decode_s, "launches": counts})
+    check(float((h2 - h).abs().max()) <= 1e-5, "sharded encode differs from the single device's")
+    check(equal_rows == len(tokens), f"sharded greedy decode: {len(tokens) - equal_rows} rows "
+          "differ from the single-device tokens")
+    check(out[0] == smiles, "sharded greedy decode: other SMILES than the single device's")
+    check(counts["flash_causal_attention"] > 0 and counts["decode_attention"] > 0,
+          f"sharded decode: K2 / K1 did not launch: {counts}")
+    # the server with two replicas
+    rows = corpus[:64]
+    with _server(model, tok, ((1, 1.0),), max_bucket=64, max_batch=64,
+                 mesh=["cuda:0", "cuda:0"]) as server:
+        check(isinstance(server.frontend.model, ShardedCOATI), "the server did not shard")
+        replies, _, _ = _load(server.port, "/embed", [{"smiles": s} for s in _in_16s(rows)], 4)
+        emb = np.asarray([e for r in replies for e in r["embeddings"]], np.float32)
+        gen = [{"embeddings": x.tolist(), "k": 1, "inv_temp": 1.0} for x in _in_16s(emb)]
+        got = [s for r in _load(server.port, "/generate", gen, 4)[0] for s in r["smiles"]]
+    ref_emb = model.encode_tokens(_tokens(tok, rows, tok.n_seq), tok).float().cpu().numpy()
+    want = model.hclip_to_2d_batch(emb, tok, k=1, inv_temp=1.0)
+    diff = float(np.abs(emb - ref_emb).max())
+    emit({"phase": "multi_device", "part": "server_two_replicas", "rows": len(rows),
+          "embed_max_abs_diff": diff, "generate_equal_rows": sum(a == b for a, b in
+                                                                 zip(got, want))})
+    check(diff <= 1e-5 and got == want, "the server with two replicas answers otherwise than "
+          "the single-device model")
+    return counts
+
 def _profile(fn, label, wall_s, top=12, annotations=()):
     """Device time by kernel over one call of fn (torch.profiler): the top
     kernels and every kernel of the port's own; and the card's idle share
@@ -3027,6 +3417,10 @@ def main() -> int:
     lap("serving")
     paths["metadynamics"] = phase_metadynamics(prod, tok)
     lap("metadynamics")
+    del model, prod
+    torch.cuda.empty_cache()
+    paths["multi_device"] = phase_multi_device()
+    lap("multi_device")
     emit({"phase": "launches", "by_path": paths})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -170,7 +170,11 @@ class SmilesRows:
 
     def get_data_pipe(self, batch_size: int = 8, partition: str = "train",
                       required_fields: Sequence[str] = (),
-                      xform_routine: Callable = lambda x: x, **kw) -> Iterator[Dict]:
+                      xform_routine: Callable = lambda x: x,
+                      distributed_rankmod_total: Optional[int] = None,
+                      distributed_rankmod_rank: int = 1, **kw) -> Iterator[Dict]:
         return batch_rows(({"smiles": s} for s in self.smiles), batch_size=batch_size,
                           partition="raw", xform_routine=xform_routine,
-                          required_fields=["smiles"])
+                          required_fields=["smiles"],
+                          distributed_rankmod_total=distributed_rankmod_total,
+                          distributed_rankmod_rank=distributed_rankmod_rank)

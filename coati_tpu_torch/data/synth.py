@@ -125,6 +125,8 @@ class SynthCorpusDataset:
         partition: str = "train",
         required_fields: Sequence[str] = (),
         xform_routine=lambda x: x,
+        distributed_rankmod_total: Optional[int] = None,
+        distributed_rankmod_rank: int = 1,
         **kw,
     ) -> Iterator[Dict]:
         from coati_tpu_torch.data.batch_pipe import batch_rows
@@ -153,4 +155,6 @@ class SynthCorpusDataset:
             xform_routine=xform_routine, required_fields=["smiles"],
             # atoms pad to one of a few bucket sizes, as in the JAX package
             pad_to_bucket=True,
+            distributed_rankmod_total=distributed_rankmod_total,
+            distributed_rankmod_rank=distributed_rankmod_rank,
         )

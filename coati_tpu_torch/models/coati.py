@@ -248,17 +248,25 @@ def fp_loss_fn(fp_preds: dict, fp_targets: dict) -> torch.Tensor:
 # --------------------------------------------------------------- losses
 
 
+def nll_sum_and_count(
+    logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = -1
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(summed cross-entropy over labels != ignore_index in float32, the
+    count of those labels)."""
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, 0)
+    logp = F.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, safe[..., None])[..., 0]
+    return torch.where(valid, nll, 0.0).sum(), valid.sum()
+
+
 def cross_entropy_ignore(
     logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = -1
 ) -> torch.Tensor:
     """Mean cross-entropy over labels != ignore_index, in float32; zero
     when every label is ignored."""
-    valid = labels != ignore_index
-    safe = torch.where(valid, labels, 0)
-    logp = F.log_softmax(logits.float(), dim=-1)
-    nll = -logp.gather(-1, safe[..., None])[..., 0]
-    nll = torch.where(valid, nll, 0.0)
-    return nll.sum() / valid.sum().clamp_min(1)
+    total, count = nll_sum_and_count(logits, labels, ignore_index)
+    return total / count.clamp_min(1)
 
 
 def clip_loss(

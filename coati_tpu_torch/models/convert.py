@@ -333,3 +333,50 @@ def due_from_coati_tpu(params_as_numpy, config_dict: Mapping[str, object], devic
     params = empty_params(config)
     params.load_state_dict({k: v.float() for k, v in state.items()}, strict=True)
     return DueModel(params.to(resolve_device(device)), config)
+
+
+# ---------------------------------------------------------------- sharding
+
+
+def split_tensor(full: torch.Tensor, dim: int, rank: int, n: int, qkv: bool = False) -> torch.Tensor:
+    """Rank `rank`'s shard of `full` among n: the rank-th of n equal pieces
+    along `dim`. qkv: a fused (3 D, ...) q | k | v projection, split within
+    each third, so that a shard holds the same heads of q, k and v."""
+    if qkv:
+        if dim != 0:
+            raise ValueError("a fused qkv projection splits along dim 0")
+        thirds = full.reshape((3, n, full.shape[0] // (3 * n)) + tuple(full.shape[1:]))
+        return thirds[:, rank].reshape((-1,) + tuple(full.shape[1:])).contiguous()
+    return full.chunk(n, dim)[rank].contiguous()
+
+
+def merge_tensors(parts, dim: int, qkv: bool = False) -> torch.Tensor:
+    """The inverse of split_tensor over the n shards, in rank order."""
+    if qkv:
+        n = len(parts)
+        per = parts[0].shape[0] // 3
+        stacked = torch.stack([p.reshape((3, per) + tuple(p.shape[1:])) for p in parts], dim=1)
+        return stacked.reshape((3 * n * per,) + tuple(parts[0].shape[1:]))
+    return torch.cat(list(parts), dim=dim)
+
+
+def split_state(state: Mapping[str, torch.Tensor], specs: Mapping[str, object], rank: int,
+                n: int) -> Dict[str, torch.Tensor]:
+    """A full state dict -> rank `rank`'s shards. `specs` maps a key to None
+    (replicated) or to an object with `dim` and `qkv` (parallel/tp.py's
+    ShardSpec); keys it lacks are replicated."""
+    out = {}
+    for k, v in state.items():
+        spec = specs.get(k)
+        out[k] = v if spec is None else split_tensor(v, spec.dim, rank, n, spec.qkv)
+    return out
+
+
+def merge_states(states, specs: Mapping[str, object]) -> Dict[str, torch.Tensor]:
+    """Every rank's shards (state dicts in rank order) -> the full state dict
+    in the reference layout."""
+    out = {}
+    for k, v in states[0].items():
+        spec = specs.get(k)
+        out[k] = v if spec is None else merge_tensors([s[k] for s in states], spec.dim, spec.qkv)
+    return out

@@ -25,6 +25,13 @@ route around the kernels: their other TPU-era choices ("xla", "pallas",
 
 The KV cache is updated in place: prefill and decode_step write into the
 cache they are given and return it.
+
+Tensor parallelism (parallel/tp.py) sets `tp`, the model axis's process
+group, on a SmilesTransformer whose weights it sharded: the full-sequence
+forward then runs each rank's H / tp heads and its columns of the MLP, with
+the collectives of parallel/comm.py around the sharded products, a
+vocab-parallel embedding and gathered vocab-parallel logits. The decode
+paths read whole weights: a sharded model is gathered before it decodes.
 """
 
 from __future__ import annotations
@@ -52,6 +59,7 @@ from coati_tpu_torch.ops.kernels.packed_attention import MAX_T as PACKED_MAX_T
 from coati_tpu_torch.ops.kernels.packed_attention import packed_causal_attention
 from coati_tpu_torch.ops.layers import cast_floats, gelu_tanh, layer_norm, linear
 from coati_tpu_torch.ops.rotary import apply_rotary, rotary_tables
+from coati_tpu_torch.parallel.comm import copy_to_group, gather_last_dim, reduce_from_group
 
 @dataclass(frozen=True)
 class TransformerConfig:
@@ -166,6 +174,11 @@ class SmilesTransformer(nn.Module):
         return self.emb.tok_emb.weight, None
 
 
+def _tp_group(params: SmilesTransformer):
+    """The model axis's group when tensor parallelism sharded `params`."""
+    return getattr(params, "tp", None)
+
+
 # ------------------------------------------------------------- routing
 
 
@@ -213,7 +226,11 @@ def embed_tokens(
     """Token embedding with optional per-row soft-token injection over
     every occurrence of `inject_token` (x[hole] = injection[row])."""
     table, norm = params.token_table()
-    x = table[tokens]
+    tp = _tp_group(params)
+    if tp is not None and table.shape[0] != cfg.n_tok:
+        x = _vocab_parallel_lookup(table, tokens, tp)
+    else:
+        x = table[tokens]
     if norm is not None:
         x = layer_norm(x, norm.weight, norm.bias)
     if injection is not None:
@@ -222,35 +239,66 @@ def embed_tokens(
     return x.to(cfg.compute_dtype)
 
 
+def _vocab_parallel_lookup(table: torch.Tensor, tokens: torch.Tensor, tp) -> torch.Tensor:
+    """Embedding rows from a table split by vocabulary over the model axis:
+    each rank looks up the tokens in its range, zeros the others, and the
+    ranks' rows are summed."""
+    n_local = table.shape[0]
+    local = tokens - torch.distributed.get_rank(tp) * n_local
+    inside = (local >= 0) & (local < n_local)
+    x = table[local.clamp(0, n_local - 1)] * inside[..., None].to(table.dtype)
+    return reduce_from_group(x, tp)
+
+
+def _row_parallel(x: torch.Tensor, lin, tp) -> torch.Tensor:
+    """A linear layer whose input features are split over the model axis:
+    the partial products summed, then the (replicated) bias added once."""
+    y = linear(x, lin.weight)
+    if tp is not None:
+        y = reduce_from_group(y, tp)
+    return y if lin.bias is None else y + lin.bias
+
+
 # ---------------------------------------------------------- full forward
 
 
-def _qkv(x, blk: Block, cfg: TransformerConfig, cos, sin):
+def _qkv(x, blk: Block, cfg: TransformerConfig, cos, sin, tp=None):
     """LayerNorm, fused qkv projection and rotary over positions [0, T).
-    q and k come out contiguous; v is a strided view of the projection."""
-    b, t, d = x.shape
-    h, dh = cfg.n_head, cfg.head_dim
+    q and k come out contiguous; v is a strided view of the projection.
+    Under tensor parallelism the projection holds this rank's heads of q, k
+    and v, so the heads are width / head_dim."""
+    b, t, _ = x.shape
+    dh = cfg.head_dim
+    width = blk.attn.c_attn.weight.shape[0] // 3
+    h = width // dh
     y = layer_norm(x, blk.ln_1.weight, blk.ln_1.bias)
-    q, k, v = linear(y, blk.attn.c_attn.weight, blk.attn.c_attn.bias).split(d, dim=-1)
+    if tp is not None:
+        y = copy_to_group(y, tp)
+    q, k, v = linear(y, blk.attn.c_attn.weight, blk.attn.c_attn.bias).split(width, dim=-1)
     q = apply_rotary(q.view(b, t, h, dh), cos[:t, None, :], sin[:t, None, :])
     k = apply_rotary(k.view(b, t, h, dh), cos[:t, None, :], sin[:t, None, :])
     return q, k, v.view(b, t, h, dh)
 
 
-def _block_tail(x, attn, blk: Block):
-    """Attention output projection and the MLP, each with its residual."""
-    x = x + linear(attn, blk.attn.c_proj.weight, blk.attn.c_proj.bias)
-    y = layer_norm(x, blk.ln_2.weight, blk.ln_2.bias)
+def _block_tail(x, attn, blk: Block, tp=None):
+    """Attention output projection and the MLP, each with its residual; the
+    two output products row-parallel under tensor parallelism."""
     fc, out = blk.mlpf[0], blk.mlpf[2]
-    return x + linear(gelu_tanh(linear(y, fc.weight, fc.bias)), out.weight, out.bias)
+    if tp is None:
+        x = x + linear(attn, blk.attn.c_proj.weight, blk.attn.c_proj.bias)
+        y = layer_norm(x, blk.ln_2.weight, blk.ln_2.bias)
+        return x + linear(gelu_tanh(linear(y, fc.weight, fc.bias)), out.weight, out.bias)
+    x = x + _row_parallel(attn, blk.attn.c_proj, tp)
+    y = copy_to_group(layer_norm(x, blk.ln_2.weight, blk.ln_2.bias), tp)
+    return x + _row_parallel(gelu_tanh(linear(y, fc.weight, fc.bias)), out, tp)
 
 
-def _block_full(x, blk: Block, cfg: TransformerConfig, cos, sin):
+def _block_full(x, blk: Block, cfg: TransformerConfig, cos, sin, tp=None):
     """One block over a full sequence. x: (B, T, D)."""
-    b, t, d = x.shape
-    q, k, v = _qkv(x, blk, cfg, cos, sin)
-    attn = _full_attention(q, k, v, cfg).reshape(b, t, d)
-    return _block_tail(x, attn, blk)
+    b, t, _ = x.shape
+    q, k, v = _qkv(x, blk, cfg, cos, sin, tp)
+    attn = _full_attention(q, k, v, cfg).reshape(b, t, -1)
+    return _block_tail(x, attn, blk, tp)
 
 
 def forward_hidden(
@@ -266,17 +314,24 @@ def forward_hidden(
     cos, sin = _rotary(cfg, tokens.device)
     x = embed_tokens(params, cfg, tokens, injection, inject_token)
     remat = cfg.remat and torch.is_grad_enabled()
+    tp = _tp_group(params)
     for blk in params.transformer.h:
         if remat:
-            x = checkpoint(_block_full, x, blk, cfg, cos, sin, use_reentrant=False)
+            x = checkpoint(_block_full, x, blk, cfg, cos, sin, tp, use_reentrant=False)
         else:
-            x = _block_full(x, blk, cfg, cos, sin)
+            x = _block_full(x, blk, cfg, cos, sin, tp)
     lnf = params.transformer.ln_f
     return layer_norm(x, lnf.weight, lnf.bias)
 
 
 def _lm_head(params: SmilesTransformer, cfg: TransformerConfig, hidden: torch.Tensor):
-    return linear(hidden, params.lm_head.weight.to(cfg.compute_dtype))
+    """Logits over the vocabulary; a vocab-parallel head gathers every
+    rank's columns."""
+    w = params.lm_head.weight.to(cfg.compute_dtype)
+    tp = _tp_group(params)
+    if tp is not None and w.shape[0] != cfg.n_tok:
+        return gather_last_dim(linear(copy_to_group(hidden, tp), w), tp)
+    return linear(hidden, w)
 
 
 def forward_logits(

@@ -149,8 +149,10 @@ class CoatiInferenceServer:
         continuous: bool = False,
         n_slots: int = 64,
     ):
-        """mesh: None or a single device (serving over several devices is
-        not ported).
+        """mesh: None, a device, or a list of devices. Several devices wrap
+        the model in ShardedCOATI / ShardedCOATI2 (parallel/inference.py):
+        one replica a device, each request batch split evenly over them.
+        Continuous mode over several devices is not ported and raises.
 
         continuous: serve /generate through ContinuousDecoder slot pools
         (n_slots rows per (k, inv_temp)) instead of drain-the-cohort
@@ -159,7 +161,13 @@ class CoatiInferenceServer:
         model families (COATI's clip_to_special_token, COATI2's
         coati_to_token as the injection transform); requests with top_p go
         to the micro-batcher."""
-        check_single_device(mesh)
+        devices = [] if mesh is None or isinstance(mesh, (str, torch.device)) else list(mesh)
+        if continuous:
+            check_single_device(mesh)
+        elif len(devices) > 1:
+            from coati_tpu_torch.parallel.inference import shard_model
+
+            model = shard_model(model, devices)
         self._continuous = continuous
         self._n_slots = n_slots
         self.frontend = _ModelFrontend(model, tokenizer)

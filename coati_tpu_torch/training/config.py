@@ -2,9 +2,9 @@
 
 Own copy of coati_tpu/training/config.py: a dataclass with the field names
 of the reference argparse schema, so params.json files and checkpoint
-train_args round-trip between the two packages. The port trains on one
-device: `parallel_mode` and `param_sharding` stay as fields for that round
-trip, and `check_single_device` refuses the values that ask for more."""
+train_args round-trip between the two packages. `parallel_mode` and
+`param_sharding` choose the multi-device step and placement
+(training/train.py, parallel/placement.py)."""
 
 from __future__ import annotations
 
@@ -95,22 +95,15 @@ class TrainConfig:
     # are orbax's, so that its configs load unchanged
     orbax_dir: Optional[str] = None
 
-    # fields of the JAX package's multi-device step ("pjit" | "shard_map";
-    # "auto" | "fsdp"). The port has one device: see check_single_device
+    # the multi-device step over a mesh: "pjit" (the gradient of the
+    # global-batch loss) | "shard_map" (per-rank AR means, DDP's semantics);
+    # and the placement: "auto" (replicated, or tensor-parallel on a mesh
+    # with a model axis) | "replicated" | "fsdp". One device ignores both
     parallel_mode: str = "pjit"
     param_sharding: str = "auto"
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
-
-    def check_single_device(self) -> None:
-        """Raise on a value that asks for more than one device."""
-        if self.parallel_mode != "pjit" or self.param_sharding != "auto":
-            raise NotImplementedError(
-                f"parallel_mode={self.parallel_mode!r}, param_sharding="
-                f"{self.param_sharding!r}: the port trains on one device; only 'pjit' "
-                "(the single-program step) with 'auto' placement is ported"
-            )
 
 
 def grande_config(**overrides) -> TrainConfig:

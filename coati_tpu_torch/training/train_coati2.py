@@ -1,8 +1,14 @@
-"""COATI2 pretraining on one device: directCLR + property-conditioned AR.
+"""COATI2 pretraining: directCLR + property-conditioned AR, on one device
+or over a mesh.
 
-PyTorch counterpart of coati_tpu/training/train_coati2.py, single device:
-the "pjit" formulation of its step, in which the directCLR loss spans the
-whole batch.
+PyTorch counterpart of coati_tpu/training/train_coati2.py. On one device
+the step is the "pjit" formulation of coati_tpu's, in which the directCLR
+loss spans the whole batch; over a mesh (`mesh=`) both formulations run as
+in training/train.py, the directCLR loss over every rank's h1, h2 and bad
+rows (all-gathered, the gather's backward summing), and the placement of
+`param_sharding` (replicated, tensor-parallel on a model axis, where the
+coati2_12_12 vocabulary of 4,266 splits, or fully-sharded) owns the
+optimizer.
 
   * loss = ar_loss + directCLR(h_canonical, h_permuted) * log2(vocab), the
     directCLR term over the first `n_direct_clr` embedding dims
@@ -24,7 +30,6 @@ model_config_from_train_config does for COATI, and else K2, whose backward
 replays the plain attention. coati_tpu's recipe takes the softmax in the
 compute dtype (softmax_dtype "compute"); the port's kernels keep it in
 float32, so the two agree in float32 and not bit for bit under bfloat16.
-Multi-device training is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -37,16 +42,13 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from coati_tpu_torch.common.util import resolve_device
 from coati_tpu_torch.data.xform_coati2 import coati2_ar_xform
 from coati_tpu_torch.models import coati2 as C2
-from coati_tpu_torch.models.coati import ar_loss_fn
 from coati_tpu_torch.models.coati2 import Coati2Config, Coati2Model
 from coati_tpu_torch.models.convert import load_reference_state_dict
 from coati_tpu_torch.models.io import (
     coati2_state_from_document,
     load_model_doc,
-    model_to_state,
     serialize_model,
 )
 from coati_tpu_torch.ops.kernels.packed_attention import MAX_T as PACKED_MAX_T
@@ -59,7 +61,11 @@ from coati_tpu_torch.training.logger import COATILogger
 from coati_tpu_torch.training.train import (
     ClippedAdamW,
     DeferredMetrics,
+    MeshRun,
+    ParallelStep,
+    _state_numpy,
     cosine_lr,
+    full_training_state,
     make_epoch_metrics_processor,
     make_optimizer,
     restore_restart,
@@ -119,22 +125,12 @@ class Coati2TrainConfig:
     resume_document: Optional[str] = None
     # restart checkpoints (torch.save files; see TrainConfig.orbax_dir)
     orbax_dir: Optional[str] = None
-    # kept so that coati_tpu's configs load; the port has one device: see
-    # check_single_device
+    # the multi-device step and placement over a mesh (see TrainConfig)
     parallel_mode: str = "pjit"
     param_sharding: str = "auto"
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
-
-    def check_single_device(self) -> None:
-        """Raise on a value that asks for more than one device."""
-        if self.parallel_mode != "pjit" or self.param_sharding != "auto":
-            raise NotImplementedError(
-                f"parallel_mode={self.parallel_mode!r}, param_sharding="
-                f"{self.param_sharding!r}: the port trains on one device; only 'pjit' "
-                "(the single-program step) with 'auto' placement is ported"
-            )
 
     def model_config(self, n_tok: int) -> Coati2Config:
         packed = self.n_seq <= PACKED_MAX_T and self.n_head > 1
@@ -170,10 +166,11 @@ class Coati2TrainConfig:
 
 
 class Coati2TrainStep:
-    """One step of the single-device COATI2 trainer: forward, the two
-    losses, backward, clip, AdamW. Calling it runs the whole step and
-    returns the metrics as 0-d tensors on the device; `losses` and `update`
-    are its two halves. With is_training=False the call only evaluates."""
+    """One step of the COATI2 trainer: forward, the two losses, backward,
+    clip, AdamW. Calling it runs the whole step and returns the metrics as
+    0-d tensors on the device; `losses` and `update` are its two halves.
+    With is_training=False the call only evaluates. Over a mesh `parallel`
+    (training/train.py ParallelStep) carries the collectives."""
 
     def __init__(
         self,
@@ -188,6 +185,7 @@ class Coati2TrainStep:
         do_clr: bool = True,
         clr_inv_temp: float = 10.0,
         is_training: bool = True,
+        parallel: Optional[ParallelStep] = None,
     ):
         self.model = model
         self.model_cfg = model_cfg
@@ -199,6 +197,7 @@ class Coati2TrainStep:
         self.do_clr = do_clr
         self.clr_inv_temp = clr_inv_temp
         self.is_training = is_training
+        self.parallel = parallel or ParallelStep()
 
     def losses(self, batch: Dict[str, torch.Tensor]):
         """(loss, ar_loss, clr_loss) of a batch of device tensors; float32
@@ -207,18 +206,20 @@ class Coati2TrainStep:
             self.model, self.model_cfg, batch["tokens"], batch["raw_tokens"],
             batch["rand_tokens"], self.stop_token, self.unk_token, self.pad_token,
         )
-        ar = ar_loss_fn(logits, batch["y_next"])
+        ar = self.parallel.ar_loss(logits, batch["y_next"])
         if not self.do_clr:
             return ar, ar, torch.zeros((), device=ar.device)
+        h1, h2, bad_rows = self.parallel.rows(h1, h2, bad_rows)
         cl = C2.direct_clr_loss(h1, h2, bad_rows, self.model_cfg.n_direct_clr, self.clr_inv_temp)
         return ar + cl * self.token_entropy_unit, ar, cl
 
     def update(self) -> None:
-        """Clip the gradients, step the optimizer, drop the gradients."""
-        self.optimizer.step()
-        self.optimizer.zero_grad(set_to_none=True)
+        """Reduce the gradients over the mesh, clip them, step the optimizer,
+        drop the gradients."""
+        self.parallel.update(self.optimizer)
 
     def __call__(self, batch: Dict[str, torch.Tensor]):
+        self.parallel.before_forward()
         if self.is_training:
             loss, ar, cl = self.losses(batch)
             loss.backward()
@@ -226,7 +227,7 @@ class Coati2TrainStep:
         else:
             with torch.no_grad():
                 loss, ar, cl = self.losses(batch)
-        return {"loss": loss.detach(), "ar_loss": ar.detach(), "clip_loss": cl.detach()}
+        return self.parallel.metrics(loss, ar, cl)
 
 
 def batch_to_device(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
@@ -251,19 +252,22 @@ def train_coati2(
     logger: Optional[COATILogger] = None,
     max_steps_per_epoch: Optional[int] = None,
     seed: int = 0,
+    mesh=None,
 ) -> Tuple[Coati2Model, dict]:
     """COATI2 pretraining loop. `dataset` exposes get_data_pipe(...) like
     COATI_dataset; rows need only a 'smiles' column (plus optional
     precomputed 'properties' / 'rand_smiles' / flag columns). Runs on
     `device`: the CUDA card unless the caller names another; with no card
-    and no device this raises. The transform draws from the global `random`
-    module, as coati_tpu's does. With config.orbax_dir, restart checkpoints
-    are written there and the run resumes from the latest. Returns (model,
-    results); results["history"] holds (partition, epoch, step, loss,
-    ar_loss, clr_loss) per step and results["train_step_seconds"] the host
-    seconds of each training step."""
-    config.check_single_device()
-    device = resolve_device(device)
+    and no device this raises. With `mesh` this is one rank of a
+    multi-device run, as train_autoencoder's. The transform draws from the
+    global `random` module, as coati_tpu's does. With config.orbax_dir,
+    restart checkpoints are written there and the run resumes from the
+    latest. Returns (model, results), the model whole on every rank;
+    results["history"] holds (partition, epoch, step, loss, ar_loss,
+    clr_loss) per step and results["train_step_seconds"] the host seconds
+    of each training step."""
+    run = MeshRun(mesh, device)
+    device = run.device
 
     tokenizer = TrieTokenizer(n_seq=config.n_seq, **get_vocab(config.tokenizer_vocab))
     token_entropy_unit = float(np.log2(tokenizer.n_token))
@@ -280,21 +284,25 @@ def train_coati2(
         load_reference_state_dict(model, coati2_state_from_document(doc, config.enc_to_coati))
         print("Loaded from checkpoint. ")
     model.train()
-    optimizer = make_optimizer(config, model)
+    placement = run.placement(model, config)
+    optimizer = placement.optimizer if placement is not None else make_optimizer(config, model)
     start_epoch = 0
     global_step = 0
     ckpt_mgr = None
     if config.orbax_dir:
         ckpt_mgr = CheckpointManager(config.orbax_dir)
-        counters = restore_restart(ckpt_mgr, model, optimizer, 3)
+        counters = restore_restart(ckpt_mgr, model, optimizer, 3, placement)
         if counters is not None:
             n_toks, start_epoch, global_step = counters
-            print(f"Resumed from restart step {ckpt_mgr.latest_step()} (epoch {start_epoch})")
+            if run.is_main:
+                print(f"Resumed from restart step {ckpt_mgr.latest_step()} "
+                      f"(epoch {start_epoch})")
 
     step_kwargs = dict(
         stop_token=tokenizer.stop_token, unk_token=tokenizer.unk_token,
         pad_token=tokenizer.pad_token, token_entropy_unit=token_entropy_unit,
         do_clr=config.do_clr, clr_inv_temp=config.clr_inv_temp,
+        parallel=ParallelStep(placement, config.parallel_mode),
     )
     step_train = Coati2TrainStep(model, model_cfg, optimizer, is_training=True, **step_kwargs)
     step_eval = Coati2TrainStep(model, model_cfg, optimizer, is_training=False, **step_kwargs)
@@ -308,22 +316,23 @@ def train_coati2(
     results = {"epochs": [], "losses": [], "best_test": 1e10, "best_epoch": 0,
                "history": [], "train_step_seconds": []}
 
-    def checkpoint(tags):
-        blob = serialize_model(
-            train_args=config.as_dict(),
-            dataset_summary=getattr(dataset, "summary", {}),
-            model_state=model_to_state(model),
-            model_kwargs=model_kwargs,
-            optimizer_state=None,
-            n_toks_processed=n_toks,
-            n_grads_processed=ngrad_updates,
-            offline_loss=offline_losses,
-        )
-        if logger is not None:
-            logger.log_model_document(blob, tags=tags)
-
-    def restart_checkpoint(epoch: int):
-        save_restart(ckpt_mgr, global_step, model, optimizer, [n_toks, epoch, global_step])
+    def save(epoch: int, tags: dict) -> None:
+        """The document (main rank) and the restart checkpoint, from one
+        gathered state."""
+        state = full_training_state(model, optimizer, placement)
+        if run.is_main and logger is not None:
+            logger.log_model_document(serialize_model(
+                train_args=config.as_dict(),
+                dataset_summary=getattr(dataset, "summary", {}),
+                model_state=_state_numpy(state[0]),
+                model_kwargs=model_kwargs,
+                optimizer_state=None,
+                n_toks_processed=n_toks,
+                n_grads_processed=ngrad_updates,
+                offline_loss=offline_losses,
+            ), tags=tags)
+        save_restart(ckpt_mgr, global_step, model, optimizer, [n_toks, epoch, global_step],
+                     placement, run.is_main, state)
 
     def do_epoch(epoch: int, partition: str) -> Optional[float]:
         nonlocal n_toks, ngrad_updates, global_step
@@ -336,6 +345,7 @@ def train_coati2(
             partition=partition,
             required_fields=["smiles"],
             xform_routine=xform_routine,
+            **run.pipe_kwargs(),
         )
         totals = {"loss": 0.0, "count": 0}
         process_metrics = make_epoch_metrics_processor(
@@ -343,18 +353,21 @@ def train_coati2(
             partition=partition, epoch=epoch, totals=totals,
             get_counters=lambda: (n_toks, ng, t0),
             clip_metric="clr_loss", clip_label="clr_l", loss_arr=loss_arr,
+            is_main=run.is_main,
         )
         dm = DeferredMetrics(process_metrics)
-        for i, batch in enumerate(pipe):
+        batches = run.batches(pipe, lambda b: batch_to_device(b, device),
+                              dict.fromkeys(BATCH_KEYS, torch.long),
+                              lambda b: int((b["tokens"] != tokenizer.pad_token).sum()))
+        for i, (batch, device_batch, rows, tokens) in enumerate(batches):
             if max_steps_per_epoch is not None and i >= max_steps_per_epoch:
                 break
-            device_batch = batch_to_device(batch, device)
-            bsz = batch["tokens"].shape[0]
+            bsz, seq = device_batch["tokens"].shape
             if partition == "train":
                 total_model_flops += coati2_train_step_model_flops(
                     n_layer_xformer=config.n_layer_xformer,
                     n_hidden_xformer=config.n_hidden_xformer,
-                    n_tok=tokenizer.n_token, batch=bsz, seq=batch["tokens"].shape[1],
+                    n_tok=tokenizer.n_token, batch=bsz, seq=seq,
                 )
             with timer:
                 if not dm.sync:
@@ -370,13 +383,12 @@ def train_coati2(
             if not dm.sync:
                 dm.push(i, metrics, bsz)
             if partition == "train":
-                ngrad_updates += bsz
-                ng += bsz
-                n_toks += int((batch["tokens"] != tokenizer.pad_token).sum())
+                ngrad_updates += rows
+                ng += rows
+                n_toks += tokens
                 if ngrad_updates > config.ngrad_to_save:
                     ngrad_updates = 0
-                    checkpoint({"train_epoch": str(epoch)})
-                    restart_checkpoint(epoch)
+                    save(epoch, {"train_epoch": str(epoch)})
         dm.drain()
         results["history"].extend(
             (partition, epoch, j, *values) for j, values in enumerate(loss_arr))
@@ -384,7 +396,7 @@ def train_coati2(
             results["train_step_seconds"].extend(timer.times)
         if totals["count"] == 0:
             return None
-        if logger is not None:
+        if run.is_main and logger is not None:
             stats = timer.emit()
             if partition == "train" and total_model_flops:
                 stats["model_tflops_per_sec_per_chip"] = (
@@ -407,11 +419,13 @@ def train_coati2(
             if test_loss < results["best_test"]:
                 results["best_test"] = test_loss
                 results["best_epoch"] = epoch
-            print(f"test loss: {test_loss:.4f} \t epoch {epoch}")
+            if run.is_main:
+                print(f"test loss: {test_loss:.4f} \t epoch {epoch}")
 
-    checkpoint({"best": "best"})
-    restart_checkpoint(config.n_epochs)
+    save(config.n_epochs, {"best": "best"})
     if ckpt_mgr is not None:
         ckpt_mgr.wait()
         ckpt_mgr.close()
+    if placement is not None:
+        model = placement.gathered_model()
     return model, results

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from coati_tpu.data import xform_coati2 as j_x2
 from coati_tpu.models import coati2 as j2
@@ -41,6 +42,8 @@ from coati_tpu_torch.models.convert import coati2_state_from_coati_tpu
 from coati_tpu_torch.models.io import load_coati2, load_model_doc, model_to_state
 from coati_tpu_torch.models.transformer import Block
 from coati_tpu_torch.ops.layers import rms_norm, swiglu
+from coati_tpu_torch.parallel.fsdp import FullyShardedPlacement
+from coati_tpu_torch.parallel.placement import resolve_placement
 from coati_tpu_torch.tokenizers import get_vocab
 from coati_tpu_torch.tokenizers.trie_tokenizer import TrieTokenizer
 from coati_tpu_torch.training import flops as tflops
@@ -331,10 +334,20 @@ def test_config_model_kwargs_and_flops_follow_coati_tpu():
         assert getattr(cfg, f) == getattr(ref.model_config(4266), f), f
     kw = dict(n_layer_xformer=16, n_hidden_xformer=512, n_tok=4266, batch=160, seq=128)
     assert tflops.coati2_train_step_model_flops(**kw) == jflops.coati2_train_step_model_flops(**kw)
-    for field, value in (("parallel_mode", "shard_map"), ("param_sharding", "fsdp")):
-        with pytest.raises(NotImplementedError, match="one device"):
-            tt2.train_coati2(tt2.Coati2TrainConfig(**{field: value}), None, device="cpu")
-    tt2.Coati2TrainConfig(orbax_dir="x").check_single_device()  # restarts are ported
+    # the multi-device fields choose the placement, with coati_tpu's refusals
+    mesh = DeviceMesh("cpu", torch.arange(4).reshape(2, 2), mesh_dim_names=("data", "model"),
+                      _init_backend=False, _rank=0)
+    for field, value, what in (("parallel_mode", "shard_map", "tensor parallelism"),
+                               ("param_sharding", "fsdp", None)):
+        config = tt2.Coati2TrainConfig(**{field: value})
+        placement = lambda: resolve_placement(mesh, config.param_sharding,  # noqa: E731
+                                              config.parallel_mode)
+        if what is None:
+            assert placement() is FullyShardedPlacement
+        else:
+            with pytest.raises(ValueError, match=what):
+                placement()
+    assert not hasattr(tt2.Coati2TrainConfig, "check_single_device")
 
 
 def test_train_coati2_restarts_from_its_checkpoint_bit_for_bit(tmp_path):

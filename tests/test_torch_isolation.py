@@ -43,6 +43,8 @@ def test_importing_the_port_loads_no_jax_or_coati_tpu():
     code = (
         "import sys, coati_tpu_torch.models.api, coati_tpu_torch.models.io\n"
         "import coati_tpu_torch.training.train, coati_tpu_torch.data\n"
+        "import coati_tpu_torch.parallel.tp, coati_tpu_torch.parallel.fsdp\n"
+        "import coati_tpu_torch.parallel.inference\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(bad)\n"

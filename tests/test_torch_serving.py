@@ -4,7 +4,8 @@ small COATI and a small COATI2, the same weights as coati_tpu's: every
 endpoint against in-process calls of both packages (embeddings atol 3e-5,
 rtol 1e-4; greedy SMILES exactly), a bad SMILES among co-batched good
 ones, the 400s and the 500, continuous mode for both families (greedy
-/generate equal to the micro-batched path), and the single-device rule.
+/generate equal to the micro-batched path), and two replicas answering as
+one device does.
 
 Every wait has its own limit: Future.result(timeout), urlopen(timeout),
 join(timeout) followed by a check that the thread ended, and stop() /
@@ -29,6 +30,7 @@ from coati_tpu.tokenizers.trie_tokenizer import TrieTokenizer as JaxTokenizer
 from coati_tpu_torch.models import coati2 as t2
 from coati_tpu_torch.models.api import COATI
 from coati_tpu_torch.models.convert import coati2_state_from_coati_tpu
+from coati_tpu_torch.parallel.inference import ShardedCOATI
 from coati_tpu_torch.serving import CoatiInferenceServer, ContinuousService, MicroBatcher
 from coati_tpu_torch.tokenizers import get_vocab
 from coati_tpu_torch.tokenizers.trie_tokenizer import TrieTokenizer
@@ -305,10 +307,27 @@ def test_model_calls_from_the_batchers_are_serialized(coati_pair, monkeypatch):
     assert not errors and most[0] == 1
 
 
-def test_server_takes_one_device_only(coati_pair):
+def test_server_with_two_replicas_answers_as_one_device(server, coati_pair):
+    """mesh of two devices: the model is wrapped in ShardedCOATI, one
+    replica a device, and /embed and greedy /generate answer as the
+    one-device server does (an odd number of rows pads the last replica);
+    continuous mode over two devices still refuses."""
     _, _, model, tok = coati_pair
+    srv = CoatiInferenceServer(model, tok, port=0, flush_ms=30, mesh=["cpu", "cpu"])
+    assert isinstance(srv.frontend.model, ShardedCOATI) and srv.frontend.model.n_devices == 2
+    srv.start()
+    try:
+        smiles = SMILES[:5]
+        h = _post(srv, "/embed", {"smiles": smiles})["embeddings"]
+        hp.close(np.asarray(h, np.float32),
+                 np.asarray(_post(server, "/embed", {"smiles": smiles})["embeddings"]))
+        out = _post(srv, "/generate", {"embeddings": h, "k": 1})["smiles"]
+        assert out == _post(server, "/generate", {"embeddings": h, "k": 1})["smiles"]
+    finally:
+        srv.stop()
     with pytest.raises(NotImplementedError, match="several devices"):
-        CoatiInferenceServer(model, tok, mesh=[torch.device("cpu"), torch.device("cpu")])
+        CoatiInferenceServer(model, tok, mesh=[torch.device("cpu"), torch.device("cpu")],
+                             continuous=True)
 
 
 # -------------------------------------------------------- continuous mode

@@ -78,15 +78,6 @@ def test_train_config_and_grande_recipe_equal_coati_tpu():
     assert json.loads(json.dumps(over.as_dict())) == over.as_dict()
 
 
-@pytest.mark.parametrize("field,value", [("parallel_mode", "shard_map"), ("param_sharding", "fsdp")])
-def test_more_than_one_device_is_refused(field, value):
-    config = tconfig.TrainConfig(**{field: value})
-    with pytest.raises(NotImplementedError, match="one device"):
-        config.check_single_device()
-    with pytest.raises(NotImplementedError, match="one device"):
-        ttrain.train_autoencoder(config, None, device="cpu")
-
-
 def test_orbax_dir_and_a_missing_card_are_refused(monkeypatch, tmp_path):
     """Without a card and without a device the trainer refuses to run, with
     or without a restart directory, and writes nothing there first."""
