@@ -188,6 +188,21 @@ number is taken.
     with the trained document: 1,024 corpus SMILES, fp32 greedy, every
     token equal to the single-device decode; then a server with two
     replicas answers /embed and /generate as the single-device model.
+    (d) World 2 on the one card over gloo: ring_permute carries a CUDA
+    tensor forward and backward (its route printed); the composite grande
+    step through the pipeline (pipe 2; 2 and 4 microbatches; fp32) held to
+    (a)'s single-device step, each rank launching K3, K4, K5f and K5b, then
+    the bf16 pipelined step's seconds (median of 10); the trunk's AR step
+    by ring attention (seq 2, T 80, 40 a shard; fp32) held to the
+    single-device step, and make_sp_encode of 1,024 corpus SMILES (T 250)
+    against encode_tokens; the MoE step (expert 2; D 256, F 1024, E 8;
+    160 x 80 tokens, capacity factor 1, which drops tokens; fp32) held to
+    the one-rank step. (e) dryrun_multichip(4): four gloo ranks on the card,
+    its five lines. (f) The continuous engine over [cuda:0, cuda:0] with
+    the trained document: 64 slots, 256 single-row fp32 greedy requests,
+    every token equal to the single-device engine's, seconds of both; then a
+    server in continuous mode over the two devices answers /generate as the
+    single-device one.
 15. report: the card's name and power limit, one `kernels` JSON line, and
     as the last line {"ok": true, "device": {...}}.
 
@@ -3232,7 +3247,388 @@ def phase_multi_device():
 
     # ---- (c) sharded decode and a server with two replicas
     total.update(_sharded_inference())
+    # ---- (d) pipeline, sequence and expert parallelism at world 2; (e) the
+    # dry run at world 4; (f) the continuous engine over two devices
+    total.update(_pipeline_sequence_expert(config, batch, ref))
+    total.update(_dryrun_four())
+    total.update(_continuous_two_devices())
     return dict(total)
+
+
+MOE_SHAPE = dict(d=256, hidden=1024, n_experts=8)
+MOE_CF = 1.0
+SP_ENCODE_CHUNK = 128
+
+
+def _moe_inputs(config):
+    """The seeded MoE (D 256, F 1024, E 8) and its 160 x 80 tokens, on the
+    card."""
+    from coati_tpu_torch.parallel import ep
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    moe = ep.init_moe(gen, device="cuda", **MOE_SHAPE)
+    x = torch.randn((config.batch_size, config.n_seq, MOE_SHAPE["d"]), generator=gen,
+                    device="cuda")
+    return moe, x
+
+
+def _sp_tokens(batch, config):
+    """(a)'s tokens and labels padded to the recipe's n_seq (T 80): [PAD]
+    tokens, ignored (-1) labels; on the card."""
+    from coati_tpu_torch.tokenizers import get_vocab
+    from coati_tpu_torch.tokenizers.trie_tokenizer import TrieTokenizer
+
+    pad = TrieTokenizer(n_seq=config.n_seq, **get_vocab(config.tokenizer_vocab)).pad_token
+    extra = ((0, 0), (0, config.n_seq - batch["tokens"].shape[1]))
+    return (torch.as_tensor(np.pad(batch["tokens"], extra, constant_values=pad), device="cuda"),
+            torch.as_tensor(np.pad(batch["y_next"], extra, constant_values=-1), device="cuda"))
+
+
+def _m8b_references(config, batch):
+    """On one device, from the seeded models of (d): the trunk's AR step at
+    T 80 (through the training route's kernels) and the MoE step, which the
+    ranks' results are held to; and how many tokens the MoE drops."""
+    from coati_tpu_torch.models import coati as F
+    from coati_tpu_torch.models.transformer import forward_logits
+    from coati_tpu_torch.parallel import ep
+    from coati_tpu_torch.training import train
+
+    step, _, _ = _md_step(config, None, None, "pjit")
+    trunk, xcfg = step.model.xformer, step.model_cfg.xformer_config
+    tokens, y_next = _sp_tokens(batch, config)
+    optimizer = train.make_optimizer(config, trunk)
+    loss = F.ar_loss_fn(forward_logits(trunk, xcfg, tokens), y_next)
+    loss.backward()
+    optimizer.step()
+    sp = {"losses": [float(loss.detach())],
+          "state": {k: v.detach().cpu() for k, v in trunk.state_dict().items()}}
+    del step, trunk, optimizer
+    moe, x = _moe_inputs(config)
+    with torch.no_grad():
+        out, _ = ep.moe_mlp(moe, x, MOE_CF)
+    dropped = int((out.abs().amax(dim=-1) == 0).sum())
+    loss = ep.make_ep_train_step(None, moe, train.make_optimizer(config, moe), MOE_CF)(x)
+    ep_ref = {"losses": [float(loss)],
+              "state": {k: v.detach().cpu() for k, v in moe.state_dict().items()}}
+    torch.cuda.empty_cache()
+    return sp, ep_ref, dropped
+
+
+def _md_rank_m8b(rank: int, world: int, port: int, root: str) -> None:
+    """One rank of (d): two processes on the one card over gloo. The
+    permute first, then PP, SP and EP from the seeded models; rank 0 writes
+    what the parent holds to the single-device results."""
+    import torch.distributed as dist
+
+    from coati_tpu_torch.models import coati as F
+    from coati_tpu_torch.parallel import comm, ep, pp, sp
+    from coati_tpu_torch.training import train
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    try:
+        root = Path(root)
+        batch = dict(np.load(root / "batch.npz"))
+        out = {}
+        shapes = set()
+        # the permute carries a CUDA tensor, forward and backward
+        group = dist.group.WORLD
+        x = (torch.arange(4.0, device="cuda") + 10 * rank).requires_grad_(True)
+        y = comm.ring_permute(x, group)
+        (y * (rank + 1)).sum().backward()
+        other = (rank - 1) % world
+        out["permute"] = {
+            "route": comm.permute_route(x, group), "device": str(y.device),
+            "forward_ok": bool(torch.equal(y.detach().cpu(), torch.arange(4.0) + 10 * other)),
+            # rank r's x reached rank r + 1, which scaled it by r + 2
+            "backward_ok": bool(torch.equal(x.grad.cpu(),
+                                            torch.full((4,), float((rank + 1) % world + 1))))}
+        # PP: pipe 2, the composite step in fp32 with 2 and 4 microbatches
+        config = _md_config("float32")
+        mesh = pp.make_pp_mesh(pipe=2, device_type="cuda")
+        rows, pick = _md_rows(batch, 0, config.batch_size)
+        out["pp"] = {}
+
+        def pp_step(cfg, m):
+            step, _, tok = _md_step(cfg, None, None, "pjit")
+            model = pp.shard_coati_params_pp(mesh, step.model)
+            fn = pp.make_pp_coati_train_step(
+                mesh, step.model_cfg, model, pp.make_pp_optimizer(cfg, mesh, model),
+                stop_token=tok.stop_token, unk_token=tok.unk_token,
+                p_clip_emb_smi=cfg.p_clip_emb_smi, token_entropy_unit=step.token_entropy_unit,
+                n_microbatches=m)
+            return fn, model
+
+        for m in (2, 4):
+            fn, model = pp_step(config, m)
+            _zero_counts()
+            with record_shapes() as (full, _):
+                metrics = fn(None, rows, pick_point=pick)
+                torch.cuda.synchronize()
+            shapes |= full
+            counts = [None] * world
+            dist.all_gather_object(counts, _counts())
+            state = pp.gather_pp_state(mesh, model)
+            out["pp"][m] = {"losses": [float(metrics[k]) for k in ("loss", "ar_loss", "clip_loss")],
+                            "launches_per_rank": counts,
+                            "state": state if rank == 0 else None}
+            del fn, model, state
+            torch.cuda.empty_cache()
+        fn, _ = pp_step(_md_config("bfloat16"), 2)
+        with record_shapes() as (full, _):  # an untimed step, the shapes of the timed ones
+            fn(None, rows, pick_point=pick)
+            torch.cuda.synchronize()
+        shapes |= full
+        out["pp_bf16_step_s"] = _md_step_seconds(fn, rows, pick, n=10)
+        del fn
+        torch.cuda.empty_cache()
+        everyone = [None] * world
+        dist.all_gather_object(everyone, sorted(shapes))
+        out["pp_shapes"] = sorted({tuple(x) for rank_shapes in everyone for x in rank_shapes})
+        # SP: seq 2, the trunk's AR step at T 80; then the encode at T 250
+        mesh = sp.make_sp_mesh(seq=2, device_type="cuda")
+        step, _, _ = _md_step(config, None, None, "pjit")
+        trunk, xcfg = step.model.xformer, step.model_cfg.xformer_config
+        tokens, y_next = _sp_tokens(batch, config)
+        start = time.perf_counter()
+        loss = sp.make_sp_train_step(mesh, xcfg, trunk, train.make_optimizer(config, trunk))(
+            tokens, y_next)
+        torch.cuda.synchronize()
+        out["sp"] = {"losses": [float(loss)], "seconds": time.perf_counter() - start,
+                     "state": ({k: v.detach().cpu() for k, v in trunk.state_dict().items()}
+                               if rank == 0 else None)}
+        del step, trunk
+        model, tok = load_model()
+        enc_tokens = np.load(root / "encode_tokens.npy")
+        encode = sp.make_sp_encode(mesh, model.config.xformer_config, model.params.xformer,
+                                   tok.stop_token)
+        start = time.perf_counter()
+        parts = []
+        for i in range(0, len(enc_tokens), SP_ENCODE_CHUNK):
+            h = encode(torch.as_tensor(enc_tokens[i:i + SP_ENCODE_CHUNK], device="cuda"))
+            parts.append(F.apply_projection(model.params.smiles_to_clip, h,
+                                            model.config.old_architecture).cpu())
+        torch.cuda.synchronize()
+        out["sp_encode"] = {"h": torch.cat(parts) if rank == 0 else None,
+                            "seconds": time.perf_counter() - start}
+        del model
+        torch.cuda.empty_cache()
+        # EP: expert 2, the MoE step
+        mesh = ep.make_ep_mesh(expert=2, device_type="cuda")
+        moe, x = _moe_inputs(config)
+        mine = ep.shard_params_ep(mesh, moe)
+        optimizer = train.make_optimizer(config, mine, grad_norm=ep.ep_grad_norm(mesh, mine))
+        start = time.perf_counter()
+        loss = ep.make_ep_train_step(mesh, mine, optimizer, MOE_CF)(x)
+        torch.cuda.synchronize()
+        whole = ep.gather_ep_params(mesh, mine)
+        out["ep"] = {"losses": [float(loss)], "seconds": time.perf_counter() - start,
+                     "local_experts": int(mine.w_fc.shape[0]),
+                     "state": ({k: v.detach().cpu() for k, v in whole.state_dict().items()}
+                               if rank == 0 else None)}
+        if rank == 0:
+            torch.save(out, root / "m8b.pt")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_ranks(fn, world, work, timeout=600):
+    """`world` processes running fn(rank, world, port, work), each joined
+    within `timeout` seconds (what is left is killed); their exit codes."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.spawn(fn, args=(world, _free_port(), str(work)), nprocs=world, join=False)
+    try:
+        for proc in ctx.processes:
+            proc.join(timeout)
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+                proc.join(10)
+    return [proc.exitcode for proc in ctx.processes]
+
+
+def _encode_rows(tok, n):
+    """The first n corpus SMILES the tokenizer takes, as padded token rows."""
+    rows = []
+    for s in gzip.open(CORPUS, "rt").read().split():
+        try:
+            rows.append(tok.tokenize_text("[SMILES]" + s + "[STOP]", pad=True))
+        except (KeyError, ValueError):
+            continue
+        if len(rows) == n:
+            break
+    return np.asarray(rows)
+
+
+def _pipeline_sequence_expert(config, batch, ref):
+    """(d): the world-2 ranks of _md_rank_m8b on (a)'s batch, held to (a)'s
+    single-device step `ref` and to the single-device trunk and MoE steps.
+    Returns the PP ranks' launches."""
+    total = collections.Counter()
+    with tempfile.TemporaryDirectory() as work:
+        work = Path(work)
+        np.savez(work / "batch.npz", **batch)
+        model, doc_tok = load_model()
+        enc_tokens = _encode_rows(doc_tok, SERVING_ROWS)
+        np.save(work / "encode_tokens.npy", enc_tokens)
+        want_h = torch.cat([model.encode_tokens(enc_tokens[i:i + SP_ENCODE_CHUNK], doc_tok).cpu()
+                            for i in range(0, len(enc_tokens), SP_ENCODE_CHUNK)])
+        del model
+        sp_ref, ep_ref, dropped = _m8b_references(config, batch)
+        start = time.perf_counter()
+        codes = _spawn_ranks(_md_rank_m8b, 2, work)
+        check(codes == [0, 0], f"multi_device (d): rank exit codes {codes}")
+        out = torch.load(work / "m8b.pt", weights_only=False)
+    perm = out["permute"]
+    emit({"phase": "multi_device", "part": "ring_permute", "backend": "gloo", **perm})
+    check(perm["forward_ok"] and perm["backward_ok"] and perm["device"].startswith("cuda"),
+          f"multi_device (d): ring_permute did not carry the CUDA tensor: {perm}")
+    pp_summary = {}
+    for m, run in out["pp"].items():
+        for counts in run["launches_per_rank"]:
+            total.update(counts)
+            check(all(counts[k] > 0 for k in TRAINING_KERNELS),
+                  f"multi_device PP {m} microbatches: a training kernel did not launch on a "
+                  f"rank: {counts}")
+        pp_summary[m] = {"launches_per_rank": run["launches_per_rank"],
+                         **_md_compare(f"multi_device PP {m} microbatches", run["losses"],
+                                       run["state"], ref)}
+    emit({"phase": "multi_device", "part": "pipeline", "pipe": 2, "runs": pp_summary,
+          "bf16_step_s": out["pp_bf16_step_s"],
+          "bf16_step_median_s": statistics.median(out["pp_bf16_step_s"])})
+    _hold_rank_shapes("multi_device_pp", out["pp_shapes"])
+    sp_out = _md_compare("multi_device SP", out["sp"]["losses"], out["sp"]["state"], sp_ref)
+    enc_diff = float((out["sp_encode"]["h"] - want_h).abs().max())
+    emit({"phase": "multi_device", "part": "sequence", "seq": 2, "T": config.n_seq,
+          "step": sp_out, "step_s": out["sp"]["seconds"], "encode_rows": len(enc_tokens),
+          "encode_T": int(enc_tokens.shape[1]), "encode_max_abs_diff": enc_diff,
+          "encode_s": out["sp_encode"]["seconds"]})
+    check(enc_diff <= 1e-4, f"multi_device SP encode differs from encode_tokens by {enc_diff}")
+    ep_out = _md_compare("multi_device EP", out["ep"]["losses"], out["ep"]["state"], ep_ref)
+    emit({"phase": "multi_device", "part": "expert", "expert": 2, **MOE_SHAPE,
+          "tokens": config.batch_size * config.n_seq, "capacity_factor": MOE_CF,
+          "tokens_dropped": dropped, "local_experts": out["ep"]["local_experts"],
+          "step": ep_out, "step_s": out["ep"]["seconds"],
+          "seconds": time.perf_counter() - start})
+    check(dropped > 0, "multi_device EP: the capacity drops no token")
+    check(out["ep"]["local_experts"] == MOE_SHAPE["n_experts"] // 2,
+          f"multi_device EP: a rank holds {out['ep']['local_experts']} experts")
+    return total
+
+
+def _hold_rank_shapes(phase, shapes):
+    """Holds the attention kernels at the (kernel, B, T, H, Dh, dtype)
+    shapes spawned ranks ran (their microbatches and head groups), in their
+    dtype and in bf16."""
+    shapes = {tuple(s) for s in shapes}
+    check(any(s[0] == "packed_causal_attention" for s in shapes),
+          f"{phase}: the ranks made no attention call")
+    hold_path_shapes(phase, shapes | {(*s[:5], "bfloat16") for s in shapes})
+
+
+def _md_rank_dryrun(rank: int, world: int, port: int, root: str) -> None:
+    """One rank of (e): dryrun_multichip over the gloo world on the card."""
+    import torch.distributed as dist
+
+    from coati_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    try:
+        _zero_counts()
+        with record_shapes() as (full, _):
+            losses = dryrun_multichip(world)
+        counts, shapes = [None] * world, [None] * world
+        dist.all_gather_object(counts, _counts())
+        dist.all_gather_object(shapes, sorted(full))
+        if rank == 0:
+            torch.save({"losses": losses, "launches_per_rank": counts,
+                        "shapes": sorted({tuple(x) for s in shapes for x in s})},
+                       Path(root) / "dryrun.pt")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _dryrun_four():
+    """(e): dryrun_multichip(4) as four gloo ranks on the card."""
+    total = collections.Counter()
+    with tempfile.TemporaryDirectory() as work:
+        start = time.perf_counter()
+        codes = _spawn_ranks(_md_rank_dryrun, 4, work)
+        check(codes == [0] * 4, f"multi_device (e): dryrun rank exit codes {codes}")
+        out = torch.load(Path(work) / "dryrun.pt", weights_only=False)
+    for counts in out["launches_per_rank"]:
+        total.update(counts)
+    emit({"phase": "multi_device", "part": "dryrun_multichip", "ranks": 4,
+          "losses": out["losses"], "launches_per_rank": out["launches_per_rank"],
+          "seconds": time.perf_counter() - start})
+    check(len(out["losses"]) == 5 and all(np.isfinite(v) for v in out["losses"].values()),
+          f"multi_device (e): dryrun_multichip(4) gave {out['losses']}")
+    _hold_rank_shapes("multi_device_dryrun", out["shapes"])
+    return total
+
+
+def _continuous_two_devices():
+    """(f): the engine over [cuda:0, cuda:0] against one device, fp32 greedy,
+    256 single-row requests through 64 slots; then continuous servers."""
+    from coati_tpu_torch.serving import ContinuousDecoder
+
+    model, tok = load_model()
+    emb = model.encode_tokens(_encode_rows(tok, SERVING_ROWS), tok).float().cpu().numpy()
+    h = emb[np.random.default_rng(0).integers(0, len(emb), size=CONTINUOUS_REQUESTS)]
+    xcfg = model.config.xformer_config
+    prefix = list(tok.tokenize_text("[CLIP][UNK][SMILES]", pad=False))
+    runs, tokens = {}, {}
+    # the one-device reference first; the counts are the two-device run's
+    for label, mesh in (("one_device", None), ("two_devices", ["cuda:0", "cuda:0"])):
+        engine = ContinuousDecoder(
+            model._compute.xformer, xcfg, prefix, n_slots=64, stop_token=tok.stop_token,
+            pad_token=tok.pad_token, inject_token=tok.unk_token, k=1, inv_temp=1.0,
+            inj_transform=lambda x: model._to_token(x.to(xcfg.compute_dtype)),
+            inj_dim=model.embed_dim, mesh=mesh)
+        engine.warmup()
+        rids = [engine.submit(row) for row in h]
+        torch.cuda.synchronize()
+        _zero_counts()
+        start = time.perf_counter()
+        with record_shapes() as (full, _):
+            out = engine.run_until_done()
+            torch.cuda.synchronize()
+        runs[label] = {"seconds": time.perf_counter() - start, "rows": engine.n_rows,
+                       "decode_steps": engine.decode_steps, "segments": engine.segments,
+                       "launches": _counts()}
+        tokens[label] = [[int(t) for t in out[r]] for r in rids]
+    counts = runs["two_devices"]["launches"]
+    hold_path_shapes("multi_device_continuous", full)  # each device's admission prefills
+    equal = sum(a == b for a, b in zip(tokens["one_device"], tokens["two_devices"]))
+    gen = [{"embeddings": [x.tolist()], "k": 1, "inv_temp": 1.0} for x in emb[:64]]
+    answers = {}
+    for label, mesh in (("one_device", None), ("two_devices", ["cuda:0", "cuda:0"])):
+        with _server(model, tok, ((1, 1.0),), max_bucket=64, max_batch=64, continuous=True,
+                     n_slots=64, mesh=mesh) as server:
+            answers[label] = [s for r in _load(server.port, "/generate", gen, 8)[0]
+                              for s in r["smiles"]]
+    same = sum(a == b for a, b in zip(answers["one_device"], answers["two_devices"]))
+    emit({"phase": "multi_device", "part": "continuous_two_devices", "devices": ["cuda:0"] * 2,
+          "requests": len(h), "slots": 64, "runs": runs, "rows_token_equal": equal,
+          "server_requests": len(gen), "server_rows_equal": same})
+    check(equal == len(h), f"continuous engine over two devices: {len(h) - equal} requests "
+          "differ from the single-device engine's tokens")
+    check(same == len(gen), f"continuous server over two devices: {len(gen) - same} rows "
+          "differ from the single-device server's")
+    check(counts["flash_causal_attention"] > 0,
+          f"continuous engine over two devices: K2 did not launch: {counts}")
+    return counts
 
 
 def _shard_map_reference(config, rows, pick):

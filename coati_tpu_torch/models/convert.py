@@ -17,10 +17,14 @@ whose state-dict keys and (out, in) weight layout are the reference's.
     reference COATI_Smiles_Inference state dict.
   * `due_from_coati_tpu` carries a coati_tpu DUE model (its parameters as
     numpy and its config) into the port's DueModel.
+  * `moe_from_coati_tpu` carries coati_tpu's MoeParams (parallel/ep.py).
+  * Sharded states: `split_state` / `merge_states` for tensor parallelism,
+    `stage_state` / `merge_stage_states` for pipeline stages.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Mapping, Optional
 
 import numpy as np
@@ -380,3 +384,54 @@ def merge_states(states, specs: Mapping[str, object]) -> Dict[str, torch.Tensor]
         spec = specs.get(k)
         out[k] = v if spec is None else merge_tensors([s[k] for s in states], spec.dim, spec.qkv)
     return out
+
+
+def moe_from_coati_tpu(moe, device=None):
+    """coati_tpu's MoeParams (router (D, E), w_fc (E, D, F), b_fc (E, F),
+    w_out (E, F, D), b_out (E, D); numpy or JAX leaves) -> the port's
+    MoeParams module on `device` (the card unless the caller names
+    another). Both packages keep the einsum layout, so nothing is
+    transposed."""
+    from coati_tpu_torch.common.util import resolve_device
+    from coati_tpu_torch.parallel.ep import MoeParams
+
+    get = (lambda k: moe[k]) if isinstance(moe, Mapping) else (lambda k: getattr(moe, k))
+    params = MoeParams(*(_tensor(get(k)).float() for k in MoeParams.FIELDS))
+    return params.to(resolve_device(device))
+
+
+_BLOCK_KEY = re.compile(r"(?:^|\.)transformer\.h\.(\d+)\.")
+
+
+def layer_index(key: str) -> Optional[int]:
+    """The trunk layer a state-dict key belongs to, or None."""
+    m = _BLOCK_KEY.search(key)
+    return None if m is None else int(m.group(1))
+
+
+def stage_state(state: Mapping[str, torch.Tensor], n_layer: int, n_stages: int,
+                stage: int) -> Dict[str, torch.Tensor]:
+    """A whole trunk's or COATI's state dict -> pipeline stage `stage`'s:
+    the replicated keys and the blocks of layers [s L / S, (s + 1) L / S)
+    (parallel/pp.py pp_param_specs), under their own keys."""
+    per = n_layer // n_stages
+    return {k: v for k, v in state.items()
+            if layer_index(k) is None or layer_index(k) // per == stage}
+
+
+def merge_stage_states(states) -> Dict[str, torch.Tensor]:
+    """The inverse of stage_state over every stage's state (in stage order):
+    the whole state dict, the replicated keys taken from stage 0, in the
+    single-device key order (by layer, then as stage 0 lists them)."""
+    merged = dict(states[0])
+    for s in states[1:]:
+        merged.update({k: v for k, v in s.items() if layer_index(k) is not None})
+    # the single-device order: keys before the blocks, the blocks by layer,
+    # then the keys after them (ln_f, lm_head, ...), as in a whole model
+    keys = list(states[0])
+    first_block = next((j for j, k in enumerate(keys) if layer_index(k) is not None), len(keys))
+    head = [(k, merged[k]) for k in keys[:first_block]]
+    blocks = sorted(((k, v) for k, v in merged.items() if layer_index(k) is not None),
+                    key=lambda kv: layer_index(kv[0]))
+    tail = [(k, merged[k]) for k in keys[first_block:] if layer_index(k) is None]
+    return dict(head + blocks + tail)

@@ -25,6 +25,15 @@ through the same code.
     downstream of them.
   * `broadcast_batch`: a host batch of tensors from one rank of a group to
     the others (the model axis reads one batch).
+  * `ring_permute`: lax.ppermute with the perm i -> i + 1 mod S, the
+    rotation of pipeline and sequence parallelism; its backward is the
+    reverse rotation. Two routes (`permute_route`): point-to-point sends
+    (batch_isend_irecv) where the backend takes the tensor, NCCL or gloo on
+    a CPU tensor; an all-gather over the group, of which each rank keeps
+    its predecessor's block, for gloo on a CUDA tensor (gloo's send and
+    recv do not take one: on the card they end the process,
+    scripts/torch_dist_probe.py; its all_gather_into_tensor carries it).
+  * `pmin`: the minimum over a group, without autograd.
 """
 
 from __future__ import annotations
@@ -131,6 +140,55 @@ class _GatherLastDim(torch.autograd.Function):
     def backward(ctx, grad):
         start = group_rank(ctx.group) * ctx.width
         return grad.narrow(-1, start, ctx.width).contiguous(), None
+
+
+def permute_route(x: torch.Tensor, group) -> str:
+    """How ring_permute moves x over `group`: "p2p" or "all_gather"."""
+    backend = dist.get_backend(group)
+    return "all_gather" if backend == "gloo" and x.device.type != "cpu" else "p2p"
+
+
+def _shift(x: torch.Tensor, group, step: int, route: Optional[str] = None) -> torch.Tensor:
+    """Rank i's x delivered to rank i + step mod S (group ranks); no autograd."""
+    n, r = group_size(group), group_rank(group)
+    x = x.contiguous()
+    if (route or permute_route(x, group)) == "all_gather":
+        return gather_rows(x.unsqueeze(0), group)[(r - step) % n].clone()
+    out = torch.empty_like(x)
+    dst = dist.get_global_rank(group, (r + step) % n)
+    src = dist.get_global_rank(group, (r - step) % n)
+    ops = [dist.P2POp(dist.isend, x, dst, group), dist.P2POp(dist.irecv, out, src, group)]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return out
+
+
+class _RingPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, route):
+        ctx.group, ctx.route = group, route
+        return _shift(x, group, 1, route)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _shift(grad, ctx.group, -1, ctx.route), None, None
+
+
+def ring_permute(x: torch.Tensor, group, route: Optional[str] = None) -> torch.Tensor:
+    """Rank i's x sent to rank i + 1 mod S of the group (lax.ppermute with
+    that perm); backward sends each gradient back to rank i - 1. `route`
+    forces "p2p" or "all_gather" (default: permute_route)."""
+    if group_size(group) == 1:
+        return x
+    return _RingPermute.apply(x, group, route)
+
+
+def pmin(x: torch.Tensor, group) -> torch.Tensor:
+    """Elementwise minimum over the group (a copy); no autograd."""
+    out = x.detach().clone()
+    if group_size(group) > 1:
+        dist.all_reduce(out, op=dist.ReduceOp.MIN, group=group)
+    return out
 
 
 def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:

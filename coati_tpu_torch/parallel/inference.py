@@ -17,7 +17,6 @@ draw it; each replica samples from its own generator (seed + its index).
 
 from __future__ import annotations
 
-import contextlib
 import copy
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -26,6 +25,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
+from coati_tpu_torch.parallel.mesh import on_device
 from coati_tpu_torch.tokenizers.trie_tokenizer import TrieTokenizer
 
 
@@ -60,8 +60,7 @@ class _ShardedInferenceBase:
         self._pool = ThreadPoolExecutor(self.n_devices, thread_name_prefix="replica")
 
     def _on(self, replica, fn, *args):
-        dev = replica.device
-        with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+        with on_device(replica.device):
             return fn(replica, *args)
 
     def _map(self, fn, arr: np.ndarray) -> List:

@@ -23,6 +23,7 @@ placements (parallel/placement.py `load_full_state`).
 
 from __future__ import annotations
 
+import contextlib
 import os
 from dataclasses import dataclass
 from typing import Optional, Sequence
@@ -67,6 +68,38 @@ def make_mesh(n_devices: Optional[int] = None, axis_names: Sequence[str] = ("dat
                       torch.arange(world).reshape(shape), mesh_dim_names=tuple(axis_names))
 
 
+def make_axis_mesh(axis: str, size: int, n_devices: Optional[int] = None,
+                   device_type: Optional[str] = None) -> DeviceMesh:
+    """(data = world / size) x (`axis` = size) over every rank, the named
+    axis inner, so that its groups hold neighbouring ranks: the meshes of
+    pipeline ("pipe"), sequence ("seq") and expert ("expert") parallelism.
+    n_devices, when given, must be the world size."""
+    init_distributed(device_type)
+    world = dist.get_world_size()
+    if n_devices is not None and n_devices != world:
+        raise ValueError(f"n_devices={n_devices}, but the world has {world} ranks (one a device)")
+    if world % size:
+        raise ValueError(f"{world} ranks do not split into {axis} groups of {size}")
+    return DeviceMesh(device_type or backend_device_type(),
+                      torch.arange(world).reshape(world // size, size),
+                      mesh_dim_names=("data", axis))
+
+
+def axis_groups(mesh: DeviceMesh, axis: str):
+    """(data group, `axis` group, data size, axis size, data rank, axis
+    rank) of a two-axis mesh; a group of one rank is None, and so is every
+    group of no mesh (one device)."""
+    if mesh is None:
+        return None, None, 1, 1, 0, 0
+    out = []
+    for name in ("data", axis):
+        group = mesh.get_group(name)
+        out.append(group if group_size(group) > 1 else None)
+    data, inner = out
+    return (data, inner, group_size(data), group_size(inner), group_rank(data),
+            group_rank(inner))
+
+
 def make_hybrid_mesh(axis_names: Sequence[str], ici_shape: Sequence[int],
                      dcn_shape: Sequence[int], device_type: Optional[str] = None) -> DeviceMesh:
     """A mesh whose axis i has ici_shape[i] * dcn_shape[i] ranks, the host
@@ -100,6 +133,11 @@ def rank_device(mesh: Optional[DeviceMesh] = None) -> torch.device:
         return torch.device("cpu")
     local = int(os.environ.get("LOCAL_RANK", dist.get_rank() % torch.cuda.device_count()))
     return torch.device("cuda", local)
+
+
+def on_device(device: torch.device):
+    """A context that makes `device` current when it is a card."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
 
 
 @dataclass

@@ -35,19 +35,32 @@ The copy is what makes the late harvest exact: the engine updates its
 tensors in place, and a harvest reading them one boundary late would read
 the next segment's state.
 
-Sampling draws from the engine's own torch.Generator (seeded by `seed`),
-so its random tokens differ from coati_tpu's; greedy (k = 1) decodes agree
-token for token. Top-k is exact (coati_tpu's engine samples with its
-approximate top-k).
+Several devices (`mesh`, a list of devices; one process, as
+parallel/inference.py): coati_tpu shards the slot pool over a mesh's first
+axis. Here the pool has n_rows = ceil((n_slots + 1) / n_dev) * n_dev rows,
+and each device holds n_rows / n_dev consecutive ones: its own ring KV
+cache, the trunk the caller placed on it (one trunk a device, or one trunk
+for every device when all are its own) and its own generator; the engine
+copies no weights. Admission picks slots as on one device and prefills
+each device's share of a group on that device; the ring clock is the
+engine's, shared by every device. Each decode step launches every device's
+step from its own thread (on its device) and reads that device's any(live);
+the segment goes on while any device has a live row. A harvest reads every
+device's rows from one host snapshot.
+
+Sampling draws from the engine's own torch.Generator (seeded by `seed`; a
+device's is seeded seed + its index), so its random tokens differ from
+coati_tpu's; greedy (k = 1) decodes agree token for token. Top-k is exact
+(coati_tpu's engine samples with its approximate top-k).
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from concurrent.futures import Future
+from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -62,16 +75,30 @@ from coati_tpu_torch.models.transformer import (
 )
 from coati_tpu_torch.ops.layers import cast_floats, linear
 from coati_tpu_torch.ops.sampling import sample_top_k
+from coati_tpu_torch.parallel.mesh import on_device
 
-def check_single_device(mesh) -> None:
-    """`mesh` may be None or name a single device (a torch.device, a string,
-    or a sequence of one); a pool over several devices is not ported."""
-    if mesh is None or isinstance(mesh, (str, torch.device)):
-        return
-    if len(list(mesh)) != 1:
-        raise NotImplementedError(
-            "serving over several devices is not ported: pass mesh=None or a single device"
-        )
+
+def mesh_devices(mesh, default: torch.device) -> List[torch.device]:
+    """The devices a `mesh` argument names: None -> [default]; a device (a
+    torch.device or a string) -> [it]; a sequence of devices -> them."""
+    if mesh is None:
+        return [default]
+    if isinstance(mesh, (str, torch.device)):
+        return [torch.device(mesh)]
+    devices = [torch.device(d) for d in mesh]
+    if not devices:
+        raise ValueError("name at least one device")
+    return devices
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether a and b name one device ("cuda" names the current one)."""
+    def index(d):
+        if d.type == "cuda" and d.index is None:
+            return torch.cuda.current_device()
+        return d.index
+
+    return a.type == b.type and index(a) == index(b)
 
 
 @dataclass
@@ -89,15 +116,30 @@ class PoolState:
 
 
 @dataclass
+class _Shard:
+    """One device's consecutive rows [lo, lo + n) of the pool: the weights
+    it reads, its state, ring cache and generator."""
+
+    device: torch.device
+    params: SmilesTransformer
+    lo: int
+    n: int
+    state: PoolState
+    cache: KVCache
+    generator: torch.Generator
+    prefix_tokens: torch.Tensor
+
+
+@dataclass
 class _Snapshot:
-    """Host copies of a segment's live, lpos and tokens, the event that
-    marks the copies done (None on the CPU), and the slots occupied when it
-    was taken."""
+    """Host copies of a segment's live, lpos and tokens over every device's
+    rows, the events that mark the copies done (none on the CPU), and the
+    slots occupied when it was taken."""
 
     live: torch.Tensor
     lpos: torch.Tensor
     tokens: torch.Tensor
-    event: Optional[torch.cuda.Event]
+    events: List[torch.cuda.Event]
     slots: set
 
 
@@ -116,11 +158,11 @@ class ContinuousDecoder:
     Requests share a token prefix (e.g. [CLIP][UNK][SMILES]) with a
     per-request injection over `inject_token`. Sampling (k, inv_temp) is
     the same for every request of an engine. The engine runs on the device
-    of `params`."""
+    of `params`, or on the devices of `mesh`."""
 
     def __init__(
         self,
-        params: SmilesTransformer,
+        params: Union[SmilesTransformer, Sequence[SmilesTransformer]],
         cfg: TransformerConfig,
         prefix: List[int],
         *,
@@ -153,13 +195,17 @@ class ContinuousDecoder:
         inj_transform: optional (g, D_in) -> (g, D) map applied to each
         admission group's injections (e.g. COATI's clip_to_special_token),
         so callers submit raw embeddings; inj_dim: the width they are
-        submitted at (defaults to the model width).
+        submitted at (defaults to the model width). Over several devices it
+        is called with each device's share, on that device.
 
-        mesh: None or a single device; several raise (not ported)."""
-        check_single_device(mesh)
+        params: the trunk, or one trunk a device of `mesh` (in its order),
+        each on its device. One trunk serves every device of a mesh that
+        names only its device.
+
+        mesh: None (the devices of `params`), a device, or a list of
+        devices over which the slot pool is split (see the module
+        docstring)."""
         self.cfg = cfg
-        self.params = cast_floats(params, cfg.compute_dtype)  # once, not per step
-        self.device = params.lm_head.weight.device
         self.prefix = list(prefix)
         self.n_slots = n_slots
         self.w = total_len or cfg.n_seq
@@ -183,20 +229,35 @@ class ContinuousDecoder:
         # row's last step; one segment (the longest) of slack, 16-aligned
         slack = max(segment_len, segment_len_hot or 0)
         self.w_ring = ((self.w + slack + 15) // 16) * 16
-        s = n_slots + 1  # one scratch row, never live
-        self.n_rows = s
-        dev = self.device
-        self.state = PoolState(
-            tokens=torch.zeros((s, self.w), dtype=torch.long, device=dev),
-            lpos=torch.zeros((s,), dtype=torch.long, device=dev),
-            cur=torch.zeros((s,), dtype=torch.long, device=dev),
-            live=torch.zeros((s,), dtype=torch.bool, device=dev),
-            row_max=torch.full((s,), self.w, dtype=torch.long, device=dev),
-        )
+        trunks = list(params) if isinstance(params, (list, tuple)) else [params]
+        homes = [t.lm_head.weight.device for t in trunks]
+        self.devices = homes if mesh is None else mesh_devices(mesh, homes[0])
+        n_dev = len(self.devices)
+        if len(trunks) == 1:
+            trunks, homes = trunks * n_dev, homes * n_dev
+        if len(trunks) != n_dev or any(not _same_device(h, d)
+                                       for h, d in zip(homes, self.devices)):
+            raise ValueError(f"pass one trunk for each device of {self.devices}, on it; "
+                             f"the trunks are on {homes}")
+        # at least one scratch row (never live), the rows split evenly
+        self.n_rows = -(-(n_slots + 1) // n_dev) * n_dev
+        per = self.n_rows // n_dev
+        self.shards: List[_Shard] = []
+        for i, (dev, trunk) in enumerate(zip(self.devices, trunks)):
+            self.shards.append(_Shard(
+                device=dev, params=cast_floats(trunk, cfg.compute_dtype), lo=i * per,
+                n=per, state=PoolState(
+                    tokens=torch.zeros((per, self.w), dtype=torch.long, device=dev),
+                    lpos=torch.zeros((per,), dtype=torch.long, device=dev),
+                    cur=torch.zeros((per,), dtype=torch.long, device=dev),
+                    live=torch.zeros((per,), dtype=torch.bool, device=dev),
+                    row_max=torch.full((per,), self.w, dtype=torch.long, device=dev)),
+                cache=make_empty_cache(cfg, per, width=self.w_ring, device=dev),
+                generator=torch.Generator(device=dev).manual_seed(seed + i),
+                prefix_tokens=torch.as_tensor(self.prefix, dtype=torch.long, device=dev)))
+        self.device = self.devices[0]
         self.clock = 0
-        self.cache: KVCache = make_empty_cache(cfg, s, width=self.w_ring, device=dev)
-        self.generator = torch.Generator(device=dev).manual_seed(seed)
-        self._prefix_tokens = torch.as_tensor(self.prefix, dtype=torch.long, device=dev)
+        self._pool: Optional[ThreadPoolExecutor] = None  # a thread a device, made at first use
         self._free: List[int] = list(range(n_slots))
         self._slot_req: Dict[int, _Request] = {}
         self._pending: List[_Request] = []
@@ -213,26 +274,55 @@ class ContinuousDecoder:
 
     # ----------------------------------------------------------- device
 
+    def _each(self, fn, shards=None) -> list:
+        """fn(shard) for each shard (every one by default), each on its
+        device and, over several devices, in its own thread; the results in
+        shard order."""
+        shards = self.shards if shards is None else shards
+
+        def run(sh):
+            with on_device(sh.device):
+                return fn(sh)
+
+        if len(shards) == 1:
+            return [run(sh) for sh in shards]
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(len(self.shards), thread_name_prefix="engine-device")
+        return [f.result() for f in [self._pool.submit(run, sh) for sh in shards]]
+
+    def close(self) -> None:
+        """End the threads that launch the devices' work (a later step makes
+        them again)."""
+        if self._pool is not None:
+            self._pool.shutdown()
+            self._pool = None
+
+    def _decode(self, sh: _Shard, ring_pos: int) -> bool:
+        """One decode step of a device's rows; whether a row is live after."""
+        st, w = sh.state, self.w
+        rows = torch.arange(sh.n, device=sh.device)
+        logits, sh.cache = decode_step_ring(sh.params, self.cfg, st.cur, st.lpos, ring_pos,
+                                            sh.cache)
+        nxt = sample_top_k(sh.generator, logits, self.k, self.inv_temp)
+        can = st.live & (st.lpos + 1 < torch.clamp(st.row_max, max=w))
+        nxt = torch.where(can, nxt, self.pad_token)
+        wpos = torch.clamp(st.lpos + 1, max=w - 1)
+        st.tokens[rows, wpos] = torch.where(can, nxt, st.tokens[rows, wpos])
+        st.live = can & (nxt != self.stop_token)
+        st.lpos = torch.where(can, st.lpos + 1, st.lpos)
+        st.cur = torch.where(can, nxt, st.cur)
+        return bool(st.live.any())
+
     @torch.no_grad()
     def _segment(self, seg_len: int) -> None:
         """Up to seg_len decode steps over the pool, ending early once no
-        row is live."""
-        st, w, dev = self.state, self.w, self.device
-        rows = torch.arange(self.n_rows, device=dev)
-        limit = torch.clamp(st.row_max, max=w)
+        row of any device is live."""
         clock0 = self.clock
         ran = 0
-        while ran < seg_len and bool(st.live.any()):
-            logits, self.cache = decode_step_ring(
-                self.params, self.cfg, st.cur, st.lpos, (clock0 + ran) % self.w_ring, self.cache)
-            nxt = sample_top_k(self.generator, logits, self.k, self.inv_temp)
-            can = st.live & (st.lpos + 1 < limit)
-            nxt = torch.where(can, nxt, self.pad_token)
-            wpos = torch.clamp(st.lpos + 1, max=w - 1)
-            st.tokens[rows, wpos] = torch.where(can, nxt, st.tokens[rows, wpos])
-            st.live = can & (nxt != self.stop_token)
-            st.lpos = torch.where(can, st.lpos + 1, st.lpos)
-            st.cur = torch.where(can, nxt, st.cur)
+        live = self._each(lambda sh: bool(sh.state.live.any()))
+        while ran < seg_len and any(live):
+            ring_pos = (clock0 + ran) % self.w_ring
+            live = self._each(lambda sh: self._decode(sh, ring_pos))
             ran += 1
         self.clock = (clock0 + ran) % self.w_ring
         self.segments += 1
@@ -242,22 +332,38 @@ class ContinuousDecoder:
     def _admit(self, slots: List[int], inj: torch.Tensor, row_max: torch.Tensor) -> None:
         """Prefill len(slots) new rows on the common prefix with per-row
         injection, sample each row's first token, and place the rows and
-        their prefix K/V in the pool."""
-        g, p = len(slots), len(self.prefix)
-        st, dev = self.state, self.device
+        their prefix K/V in the pool: each device its own rows."""
+        parts = []
+        for sh in self.shards:
+            mine = [i for i, s in enumerate(slots) if sh.lo <= s < sh.lo + sh.n]
+            if mine:
+                parts.append((sh, [slots[i] - sh.lo for i in mine], mine))
+        by_shard = {id(sh): (local, mine) for sh, local, mine in parts}
+
+        def admit(sh):
+            local, mine = by_shard[id(sh)]
+            pick = torch.as_tensor(mine, dtype=torch.long, device=inj.device)
+            self._admit_rows(sh, local, inj[pick].to(sh.device), row_max[pick].to(sh.device))
+
+        self._each(admit, [sh for sh, _, _ in parts])
+
+    def _admit_rows(self, sh: _Shard, rows: List[int], inj: torch.Tensor,
+                    row_max: torch.Tensor) -> None:
+        g, p = len(rows), len(self.prefix)
+        st, dev = sh.state, sh.device
         if self.inj_transform is not None:
             inj = self.inj_transform(inj)
-        ptoks = self._prefix_tokens[None, :].expand(g, p)
+        ptoks = sh.prefix_tokens[None, :].expand(g, p)
         cache = make_empty_cache(self.cfg, g, width=max(p, 8), device=dev)
         hidden, cache = prefill(
-            self.params, self.cfg, ptoks,
+            sh.params, self.cfg, ptoks,
             injection=inj if self.inject_token is not None else None,
             inject_token=self.inject_token,
             cache=cache,
         )
-        last = linear(hidden[:, -1], self.params.lm_head.weight)
-        first = sample_top_k(self.generator, last, self.k, self.inv_temp)
-        idx = torch.as_tensor(slots, dtype=torch.long, device=dev)
+        last = linear(hidden[:, -1], sh.params.lm_head.weight)
+        first = sample_top_k(sh.generator, last, self.k, self.inv_temp)
+        idx = torch.as_tensor(rows, dtype=torch.long, device=dev)
         tokens = torch.zeros((g, self.w), dtype=torch.long, device=dev)
         tokens[:, :p] = ptoks
         tokens[:, p] = first
@@ -268,13 +374,12 @@ class ContinuousDecoder:
         st.row_max[idx] = row_max
         # the prefix K/V at the ring slots of the p clocks before the next
         # step: logical position j lands at age p - j
-        cols = torch.remainder(
-            self.clock - p + torch.arange(p, device=dev), self.w_ring)
-        self.cache.data[:, :, idx[:, None], cols[None, :]] = \
-            cache.data[:, :, :, :p].to(self.cache.data.dtype)
-        if self.cache.scale is not None:
-            self.cache.scale[:, :, idx[:, None], cols[None, :]] = \
-                cache.scale[:, :, :, :p].to(self.cache.scale.dtype)
+        cols = torch.remainder(self.clock - p + torch.arange(p, device=dev), self.w_ring)
+        sh.cache.data[:, :, idx[:, None], cols[None, :]] = \
+            cache.data[:, :, :, :p].to(sh.cache.data.dtype)
+        if sh.cache.scale is not None:
+            sh.cache.scale[:, :, idx[:, None], cols[None, :]] = \
+                cache.scale[:, :, :, :p].to(sh.cache.scale.dtype)
 
     # ------------------------------------------------------------- host
 
@@ -317,19 +422,25 @@ class ContinuousDecoder:
             self._admit(slots, inj.to(self.cfg.compute_dtype), row_max)
 
     def _snapshot(self) -> _Snapshot:
-        """Copies of live, lpos and tokens as this segment left them."""
-        st = self.state
-        if self.device.type == "cuda":
-            copies = []
-            for x in (st.live, st.lpos, st.tokens):
-                host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-                host.copy_(x, non_blocking=True)
-                copies.append(host)
-            event = torch.cuda.Event()
-            event.record()
-        else:
-            copies, event = [x.clone() for x in (st.live, st.lpos, st.tokens)], None
-        return _Snapshot(*copies, event=event, slots=set(self._slot_req))
+        """Copies of every device's live, lpos and tokens as this segment
+        left them, in one host tensor each: from a card, pinned and
+        non-blocking, with an event on the device's stream."""
+        on_card = any(sh.device.type == "cuda" for sh in self.shards)
+        first = self.shards[0].state
+        copies = [torch.empty((self.n_rows,) + tuple(x.shape[1:]), dtype=x.dtype,
+                              pin_memory=on_card)
+                  for x in (first.live, first.lpos, first.tokens)]
+        events = []
+        for sh in self.shards:
+            st = sh.state
+            for host, x in zip(copies, (st.live, st.lpos, st.tokens)):
+                host[sh.lo:sh.lo + sh.n].copy_(x, non_blocking=sh.device.type == "cuda")
+            if sh.device.type == "cuda":
+                with on_device(sh.device):
+                    event = torch.cuda.Event()
+                    event.record()
+                events.append(event)
+        return _Snapshot(*copies, events=events, slots=set(self._slot_req))
 
     def _harvest(self, snap: Optional[_Snapshot] = None) -> None:
         """Return the rows finished in `snap` (or, without one, in the
@@ -341,8 +452,8 @@ class ContinuousDecoder:
             if not self._slot_req:
                 return
             snap = self._snapshot()
-        if snap.event is not None:
-            snap.event.synchronize()
+        for event in snap.events:
+            event.synchronize()
         live, pos, tokens = snap.live.numpy(), snap.lpos.numpy(), snap.tokens.numpy()
         mine = [s for s in self._slot_req if s in snap.slots]
         finished = [s for s in mine if not live[s]]
@@ -359,32 +470,37 @@ class ContinuousDecoder:
 
     def warmup(self, group_sizes=None) -> None:
         """Build the kernels and run each admission size (the powers of two
-        up to n_slots) and each segment length once, on the scratch row and
-        a copy of the cache: the engine's requests, state and random stream
-        are left as they were."""
+        up to n_slots) and each segment length once on every device, on
+        copies of the state and the cache: the engine's requests, state and
+        random streams are left as they were."""
         if group_sizes is None:
             group_sizes = [1 << i for i in range(self.n_slots.bit_length())]
         d_in = self.inj_dim or self.cfg.n_embd
-        saved = (self.state, self.cache, self.clock, self.generator.get_state(),
-                 self.segments, self.decode_steps)
+        saved = [(sh.state, sh.cache, sh.generator.get_state()) for sh in self.shards]
+        counters = (self.clock, self.segments, self.decode_steps)
         try:
             for g in group_sizes:
-                self.state = PoolState(*(x.clone() for x in vars(saved[0]).values()))
-                self.cache = KVCache(*(None if x is None else x.clone()
-                                       for x in vars(saved[1]).values()))
+                for sh, (state, cache, _) in zip(self.shards, saved):
+                    sh.state = PoolState(*(x.clone() for x in vars(state).values()))
+                    sh.cache = KVCache(*(None if x is None else x.clone()
+                                         for x in vars(cache).values()))
                 inj = torch.zeros((g, d_in), dtype=self.cfg.compute_dtype, device=self.device)
-                self._admit([self.n_slots] * g, inj,
-                            torch.full((g,), self.w, dtype=torch.long, device=self.device))
+                row_max = torch.full((g,), self.w, dtype=torch.long, device=self.device)
+                for sh in self.shards:  # each device's first row, g times
+                    self._admit([sh.lo] * g, inj, row_max)
             seg_lens = {self.segment_len, self.segment_len_hot or self.segment_len}
             for seg in seg_lens:
-                self.state.live[self.n_slots] = True
+                for sh in self.shards:
+                    sh.state.live[0] = True
                 self._segment(seg)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            for sh in self.shards:
+                if sh.device.type == "cuda":
+                    torch.cuda.synchronize(sh.device)
         finally:
-            (self.state, self.cache, self.clock, gen_state,
-             self.segments, self.decode_steps) = saved
-            self.generator.set_state(gen_state)
+            for sh, (state, cache, gen_state) in zip(self.shards, saved):
+                sh.state, sh.cache = state, cache
+                sh.generator.set_state(gen_state)
+            self.clock, self.segments, self.decode_steps = counters
 
     def step(self) -> None:
         """One engine tick: admit, run one decode segment, harvest.
@@ -440,7 +556,8 @@ class ContinuousDecoder:
             self._free.extend(self._slot_req)
             self._slot_req.clear()
         self._snap = None
-        self.state.live.zero_()
+        for sh in self.shards:
+            sh.state.live.zero_()
         return rids
 
     def results(self) -> Dict[int, np.ndarray]:
@@ -528,6 +645,7 @@ class ContinuousService:
         with self._lock:
             self._closed = True
         self._thread.join(timeout)
+        self._engine.close()
         with self._lock:
             futs, self._futures = self._futures, {}
         for f in futs.values():

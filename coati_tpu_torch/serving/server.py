@@ -51,11 +51,7 @@ import numpy as np
 import torch
 
 from coati_tpu_torch.serving.batcher import MicroBatcher
-from coati_tpu_torch.serving.continuous import (
-    ContinuousDecoder,
-    ContinuousService,
-    check_single_device,
-)
+from coati_tpu_torch.serving.continuous import ContinuousDecoder, ContinuousService, mesh_devices
 
 # seconds a request waits for its rows before the server answers 500
 REQUEST_TIMEOUT_S = 600.0
@@ -151,8 +147,9 @@ class CoatiInferenceServer:
     ):
         """mesh: None, a device, or a list of devices. Several devices wrap
         the model in ShardedCOATI / ShardedCOATI2 (parallel/inference.py):
-        one replica a device, each request batch split evenly over them.
-        Continuous mode over several devices is not ported and raises.
+        one replica a device, each request batch split evenly over them; in
+        continuous mode each slot pool is split over them too
+        (ContinuousDecoder(mesh=...)).
 
         continuous: serve /generate through ContinuousDecoder slot pools
         (n_slots rows per (k, inv_temp)) instead of drain-the-cohort
@@ -161,10 +158,9 @@ class CoatiInferenceServer:
         model families (COATI's clip_to_special_token, COATI2's
         coati_to_token as the injection transform); requests with top_p go
         to the micro-batcher."""
-        devices = [] if mesh is None or isinstance(mesh, (str, torch.device)) else list(mesh)
-        if continuous:
-            check_single_device(mesh)
-        elif len(devices) > 1:
+        devices = [] if mesh is None else mesh_devices(mesh, None)
+        self._devices = devices if len(devices) > 1 else None
+        if self._devices:
             from coati_tpu_torch.parallel.inference import shard_model
 
             model = shard_model(model, devices)
@@ -218,18 +214,23 @@ class CoatiInferenceServer:
         prefix and the injection over [UNK]; the model's own embedding ->
         token map (`_to_token`) is the injection transform."""
         model, tok = self.frontend.model, self.frontend.tokenizer
+        # over several devices each device's replica decodes and maps its
+        # share of the pool
+        replicas = getattr(model, "replicas", [model])
+        by_device = {r.device: r for r in replicas}
+        model = getattr(model, "model", model)
         xcfg = model.config.xformer_config
         prefix = list(tok.tokenize_text("[CLIP][UNK][SMILES]", pad=False))
 
         def inj_transform(h):
-            return model._to_token(h.to(xcfg.compute_dtype))
+            return by_device[h.device]._to_token(h.to(xcfg.compute_dtype))
 
         engine = ContinuousDecoder(
-            model._compute.xformer, xcfg, prefix,
+            [r._compute.xformer for r in replicas], xcfg, prefix,
             n_slots=self._n_slots,
             stop_token=tok.stop_token, pad_token=tok.pad_token,
             inject_token=tok.unk_token, k=k, inv_temp=inv_temp,
-            inj_transform=inj_transform, inj_dim=model.embed_dim,
+            inj_transform=inj_transform, inj_dim=model.embed_dim, mesh=self._devices,
         )
         engine.warmup()
 

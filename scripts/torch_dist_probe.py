@@ -3,11 +3,15 @@ card: NCCL at world 1 and 2, and gloo at world 2 with CUDA tensors, every
 rank on cuda:0 (two ranks on one card is how chip_smoke.py's multi_device
 phase runs a world of 2). Prints the Python, torch, CUDA and NCCL versions,
 the card's name and power limit, then one JSON line a (backend, world):
-for each rank, "ok" or the error of each collective and of a DeviceMesh.
+for each rank, "ok" or the error of each collective, of a point-to-point exchange
+around the ring (batch_isend_irecv, i -> i + 1; world 2 only, last, as a
+failure there can end the process; the results before it are kept) and of
+a DeviceMesh. A rank left waiting is killed after 90 s.
 
     python3 scripts/torch_dist_probe.py       # on a machine with a CUDA card
 """
 
+import datetime
 import json
 import os
 import subprocess
@@ -31,7 +35,8 @@ def _outcome(fn) -> str:
 
 def worker(rank, world, backend, path, out):
     res = {"init": _outcome(lambda: dist.init_process_group(
-        backend, init_method=f"file://{path}", rank=rank, world_size=world))}
+        backend, init_method=f"file://{path}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=60)))}
     if res["init"] != "ok":
         out[rank] = res
         return
@@ -50,7 +55,6 @@ def worker(rank, world, backend, path, out):
         "all_to_all_single": lambda: dist.all_to_all_single(torch.empty(8, device=dev),
                                                             x.clone()),
     }
-    res.update({name: _outcome(fn) for name, fn in calls.items()})
 
     def mesh():
         from torch.distributed.device_mesh import DeviceMesh
@@ -59,9 +63,19 @@ def worker(rank, world, backend, path, out):
                        mesh_dim_names=("data", "model"))
         dist.all_reduce(x.clone(), group=m.get_group("data"))
 
-    res["device_mesh"] = _outcome(mesh)
+    def ring():
+        ops = [dist.P2POp(dist.isend, x.clone(), (rank + 1) % world),
+               dist.P2POp(dist.irecv, torch.empty(8, device=dev), (rank - 1) % world)]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+
+    calls["device_mesh"] = mesh
+    if world > 1:  # last: on gloo with CUDA tensors it can end the process
+        calls["batch_isend_irecv"] = ring
+    for name, fn in calls.items():
+        res[name] = _outcome(fn)
+        out[rank] = dict(res)  # kept if a later call ends the process
     dist.destroy_process_group()
-    out[rank] = res
 
 
 def main() -> None:
@@ -79,7 +93,7 @@ def main() -> None:
             ctx = mp.spawn(worker, args=(world, backend, path, out), nprocs=world, join=False)
             joined = True
             for proc in ctx.processes:
-                proc.join(120)
+                proc.join(90)
                 if proc.is_alive():
                     proc.kill()
                     joined = False

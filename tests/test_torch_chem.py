@@ -36,6 +36,9 @@ from coati_tpu_torch.chem import selfies_lite as t_sl
 from coati_tpu_torch.tokenizers import get_vocab
 from coati_tpu_torch.tokenizers import graph_tokens as t_gt
 from coati_tpu_torch.tokenizers.matcher import VocabMatcher
+from tests.torch_port_helpers import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 CORPUS = Path(__file__).resolve().parents[1] / "corpora" / "chembl_synth_v1.smi.gz"
 STEREO = ["N[C@@H](C)C(=O)O", "N[C@H](C)C(=O)O", "C[C@H]1CC[C@@H](N)CC1", "F/C=C/F",

@@ -41,6 +41,9 @@ from coati_tpu_torch.models.io import load_e3gnn_smiles_clip_e2e
 from coati_tpu_torch.tokenizers import get_vocab
 from coati_tpu_torch.tokenizers import selfies_support as t_sel
 from coati_tpu_torch.tokenizers.trie_tokenizer import TrieTokenizer
+from tests.torch_port_helpers import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 CORPUS = Path(__file__).resolve().parents[1] / "corpora" / "chembl_synth_v1.smi.gz"
 # charged, salted, zwitterionic, aromatic heterocycles, isotopes, stereo

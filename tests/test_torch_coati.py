@@ -36,6 +36,9 @@ from coati_tpu_torch.tokenizers import get_vocab
 from coati_tpu_torch.tokenizers.trie_tokenizer import TrieTokenizer
 
 from tests import torch_port_helpers as hp
+from tests.torch_port_helpers import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ATOL, RTOL = 3e-5, 1e-4
 DOC = Path(__file__).resolve().parents[1] / "docs" / "eval_model_r5.pkl"

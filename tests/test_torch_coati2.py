@@ -50,6 +50,9 @@ from coati_tpu_torch.training import flops as tflops
 from coati_tpu_torch.training import train_coati2 as tt2
 from coati_tpu_torch.training.logger import COATILogger
 from tests import torch_port_helpers as hp
+from tests.torch_port_helpers import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 CORPUS = Path(__file__).resolve().parents[1] / "corpora" / "chembl_synth_v1.smi.gz"
 SMILES = ["CCO", "c1ccccc1O", "CC(=O)Nc1ccc(O)cc1", "OC(=O)C1CC1", "N#CCC(=O)N",

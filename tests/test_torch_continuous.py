@@ -4,13 +4,15 @@ rows at different depths) against decode_step and against coati_tpu's
 steps; the engine, greedy, against the port's sampler request by request
 and against coati_tpu's engine token for token (uniform and mixed
 max_new_tokens, 13 requests over 8 slots, pipelined and not, a COATI2
-model); no decode step once every row is dead; the late-snapshot harvest;
-concurrent submission; ContinuousService.
+model); the engine over two devices (["cpu", "cpu"]) against one device
+and coati_tpu's engine over make_mesh(2); no decode step once every row is
+dead; the late-snapshot harvest; concurrent submission; ContinuousService.
 
 Models: 2 layers, 32 wide, 2 heads, the same weights in both packages
 (coati_tpu's init carried across), float32, the JAX side at precision
 "highest". Logits atol 3e-5, rtol 1e-4; tokens exactly."""
 
+import copy
 import threading
 
 import jax
@@ -286,6 +288,34 @@ def test_engine_coati2_greedy_equals_hcoati_to_2d_batch_and_coati_tpu_s():
         assert got == [int(x) for x in jout[jr[i]]], f"request {i}"
 
 
+@pytest.mark.parametrize("pipeline", [True, False])
+def test_engine_over_two_devices_equals_one_device_and_coati_tpu_s_sharded_engine(pipeline):
+    """6 requests through 4 slots over ["cpu", "cpu"] (n_rows 6: slots 0-2
+    on the first device, slot 3 and two scratch rows on the second), greedy:
+    token for token the one-device engine's and coati_tpu's engine's over
+    make_mesh(2)."""
+    from coati_tpu.parallel.mesh import make_mesh
+
+    jparams, jcfg, module, cfg = _pair(seed=5)
+    inj = _injections(6, seed=11)
+    budgets = [None, 3, 9, None, 5, 14]
+    outs = []
+    for mesh in (None, ["cpu", "cpu"]):
+        eng = _engine(module, cfg, n_slots=4, segment_len=5, pipeline=pipeline, mesh=mesh)
+        rids = [eng.submit(x, max_new_tokens=b) for x, b in zip(inj, budgets)]
+        out = eng.run_until_done()
+        outs.append([[int(t) for t in out[r]] for r in rids])
+    assert eng.n_rows % 2 == 0 and eng.n_rows == 6 and sorted(eng._free) == [0, 1, 2, 3]
+    jeng = JaxDecoder(jparams, jcfg, PREFIX, n_slots=4, stop_token=STOP, pad_token=PAD,
+                      inject_token=UNK, k=1, inv_temp=2.0, segment_len=5, pipeline=pipeline,
+                      mesh=make_mesh(2))
+    assert jeng.n_rows == eng.n_rows
+    jr = [jeng.submit(x, max_new_tokens=b) for x, b in zip(inj, budgets)]
+    jout = jeng.run_until_done()
+    assert outs[1] == outs[0]
+    assert outs[1] == [[int(t) for t in jout[r]] for r in jr]
+
+
 @pytest.mark.parametrize("k", [1, 5])
 def test_segments_run_no_step_once_no_row_is_live(monkeypatch, k):
     """Every decode step the engine runs has a live row, the clock moves by
@@ -298,7 +328,7 @@ def test_segments_run_no_step_once_no_row_is_live(monkeypatch, k):
     real = continuous.decode_step_ring
 
     def step(*args):
-        assert bool(eng.state.live.any()), "a decode step over dead rows"
+        assert bool(eng.shards[0].state.live.any()), "a decode step over dead rows"
         return real(*args)
 
     monkeypatch.setattr(continuous, "decode_step_ring", step)
@@ -324,11 +354,11 @@ def test_late_harvest_reads_the_segment_end_snapshot():
     eng.step()  # segment 1: the short row ends; its snapshot waits
     snap = eng._snap
     assert snap is not None and not eng.pop_results()
-    assert snap.tokens.data_ptr() != eng.state.tokens.data_ptr()
+    assert snap.tokens.data_ptr() != eng.shards[0].state.tokens.data_ptr()
     frozen = (snap.live.clone(), snap.lpos.clone(), snap.tokens.clone())
     eng.step()  # segment 2 runs, then segment 1's snapshot is harvested
     assert all(torch.equal(a, b) for a, b in zip(frozen, (snap.live, snap.lpos, snap.tokens)))
-    moved = [s for s in range(2) if int(eng.state.lpos[s]) != int(frozen[1][s])]
+    moved = [s for s in range(2) if int(eng.shards[0].state.lpos[s]) != int(frozen[1][s])]
     assert moved, "the long rows advanced past the snapshot"
     done = eng.pop_results()
     assert list(done) == [short]
@@ -373,7 +403,7 @@ def test_warmup_leaves_the_engine_as_it_was():
     a = _engine(module, cfg, n_slots=4, k=5, seed=2)
     b = _engine(module, cfg, n_slots=4, k=5, seed=2)
     b.warmup()
-    assert b.clock == 0 and not b.state.live.any() and b.n_pending == 0
+    assert b.clock == 0 and not b.shards[0].state.live.any() and b.n_pending == 0
     outs = []
     for eng in (a, b):
         rids = [eng.submit(x, max_new_tokens=7) for x in inj]
@@ -383,11 +413,26 @@ def test_warmup_leaves_the_engine_as_it_was():
 
 
 def test_engine_takes_one_device_only_and_checks_its_inputs():
+    """A device or a list of one gives the one-device pool; a list of two
+    splits the rows (n_rows a multiple of the devices, a scratch row at
+    least) over the trunks the caller placed, one a device or one for a
+    device named twice, and copies none; a trunk count or a device that
+    does not match the mesh is refused."""
     _, _, module, cfg = _pair()
-    _engine(module, cfg, mesh="cpu")
-    _engine(module, cfg, mesh=[torch.device("cpu")])
-    with pytest.raises(NotImplementedError, match="several devices"):
-        _engine(module, cfg, mesh=["cpu", "cpu"])
+    for mesh in ("cpu", [torch.device("cpu")]):
+        eng = _engine(module, cfg, mesh=mesh)
+        assert len(eng.shards) == 1 and eng.n_rows == 9
+    two = _engine(module, cfg, mesh=["cpu", "cpu"])
+    assert two.n_rows == 10 and [sh.lo for sh in two.shards] == [0, 5]
+    assert two.shards[0].params is module and two.shards[1].params is module
+    other = copy.deepcopy(module)
+    listed = _engine([module, other], cfg)
+    assert listed.devices == [torch.device("cpu")] * 2
+    assert listed.shards[0].params is module and listed.shards[1].params is other
+    with pytest.raises(ValueError, match="one trunk for each device"):
+        _engine([module, other, module], cfg, mesh=["cpu", "cpu"])
+    with pytest.raises(ValueError, match="one trunk for each device"):
+        _engine(module, cfg, mesh=["meta"])
     eng = _engine(module, cfg)
     with pytest.raises(ValueError, match="injection"):
         eng.submit(np.zeros(31, np.float32))

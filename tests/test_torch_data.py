@@ -36,6 +36,9 @@ from coati_tpu_torch.data.host_workers import XformWorkerPool
 from coati_tpu_torch.data.xform import clip_ar_xform
 from coati_tpu_torch.tokenizers import get_vocab
 from coati_tpu_torch.tokenizers.trie_tokenizer import TrieTokenizer
+from tests.torch_port_helpers import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SMILES = ["C", "CC", "CCO", "c1ccccc1", "CCN", "CC(=O)O", "CCCC", "CCOC"]
 # every draw of clip_ar_xform decided by a probability of 0 or 1

@@ -34,6 +34,9 @@ from coati_tpu_torch.ops import layers as tlayers
 from coati_tpu_torch.ops.kernels import egnn_messages as kmsg
 
 from tests.torch_port_helpers import assert_gradients_match, jax_gradients_by_name, model_pair
+from tests.torch_port_helpers import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ATOL, RTOL = 3e-5, 1e-4
 

@@ -26,6 +26,9 @@ from coati_tpu_torch.models.convert import lora_from_coati_tpu, transformer_stat
 from coati_tpu_torch.models.io import load_e3gnn_smiles_clip_e2e, model_to_state, serialize_model
 from coati_tpu_torch.training import finetune as tft
 from tests import torch_port_helpers as hp
+from tests.torch_port_helpers import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ATOL, RTOL = 3e-5, 1e-4
 N_TOK, N_SEQ = 40, 24

@@ -28,6 +28,9 @@ from coati_tpu_torch.generative import density as tdn
 from coati_tpu_torch.generative import purifications as tpu
 from coati_tpu_torch.models.io import load_e3gnn_smiles_clip_e2e
 from tests import torch_port_helpers as hp
+from tests.torch_port_helpers import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ROOT = Path(__file__).resolve().parents[1]
 DOC = ROOT / "docs" / "eval_model_r5.pkl"

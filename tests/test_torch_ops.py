@@ -36,6 +36,9 @@ from coati_tpu_torch.ops import sampling as tsamp
 from coati_tpu_torch.ops.kernels import decode_attention as kdecode
 from coati_tpu_torch.ops.kernels import flash_attention as kflash
 from coati_tpu_torch.ops.kernels import packed_attention as kpacked
+from tests.torch_port_helpers import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ATOL, RTOL = 3e-5, 1e-4
 HIGHEST = jax.lax.Precision.HIGHEST

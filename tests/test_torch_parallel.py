@@ -10,7 +10,11 @@ torch thread a rank); every join has its own limit and each rank's exit
 code is checked; rank 0 writes its losses and its gathered states.
 
 The sizes are small: a 2-layer, 64-wide transformer with 4 heads and a
-1-layer, 16-wide EGNN; global batches of 8 rows, 2 steps. Tolerances are
+1-layer, 16-wide EGNN; global batches of 8 rows, 2 steps. Pipeline,
+sequence and expert parallelism run in the same two spawned worlds (world
+2: pipe, seq or expert 2; world 4: data 2 by each), against coati_tpu's
+functions on make_pp_mesh(4, pipe=2) / make_sp_mesh(4, seq=2) over this
+process's virtual devices and against the single-device steps. Tolerances are
 those of tests/test_torch_training.py's single-device steps: losses within
 1e-5 relative; parameters within 3 lr everywhere and 1e-3 lr for 99.9% of
 them (Adam's first steps turn a last-bit gradient difference of an element
@@ -18,21 +22,30 @@ whose gradient is near 1e-8 into a step of up to lr)."""
 
 import dataclasses
 import json
+import copy
 import random
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 
 from coati_tpu.models import coati2 as j2
+from coati_tpu.models import transformer as JT
 from coati_tpu.models.api import COATI as JaxCOATI
+from coati_tpu.models.coati import cross_entropy_ignore as jax_cross_entropy
 from coati_tpu.models.io import params_to_state
+from coati_tpu.ops.attention import causal_attention as jax_causal_attention
+from coati_tpu.parallel import ep as jep
+from coati_tpu.parallel import pp as jpp
+from coati_tpu.parallel import sp as jsp
 from coati_tpu.parallel.fsdp import fsdp_specs as jax_fsdp_specs
 from coati_tpu.parallel.inference import ShardedCOATI as JaxShardedCOATI
 from coati_tpu.parallel.inference import ShardedCOATI2 as JaxShardedCOATI2
+from coati_tpu.parallel.mesh import batch_sharding
 from coati_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from coati_tpu.parallel.mesh import replicate_params as jax_replicate
 from coati_tpu.parallel.mesh import shard_batch
@@ -47,9 +60,14 @@ from coati_tpu_torch.models import coati2 as t2
 from coati_tpu_torch.models.api import COATI
 from coati_tpu_torch.models.convert import (
     coati2_state_from_coati_tpu,
+    gradients_from_coati_tpu,
+    merge_stage_states,
     merge_states,
+    moe_from_coati_tpu,
     split_state,
+    stage_state,
     state_from_coati_tpu,
+    transformer_state_from_coati_tpu,
 )
 from coati_tpu_torch.parallel.fsdp import FullyShardedPlacement
 from coati_tpu_torch.parallel.inference import ShardedCOATI, ShardedCOATI2, pad_rows
@@ -156,16 +174,19 @@ def inputs(tmp_path_factory):
 
     np.savez(root / "weights.npz", **_flat(model.state_dict()))
     np.savez(root / "weights2.npz", **_flat(model2.state_dict()))
-    np.savez(root / "batches.npz", **arrays)
-    (root / "setup.json").write_text(json.dumps({
-        "coati": dataclasses.asdict(tcfg), "coati2": dataclasses.asdict(tcfg2), "lr": LR,
-        "clip_grad": CLIP, "steps": STEPS, "step": step, "step2": step2}))
 
     # host copies: the JAX steps donate the parameters they are given
     jparams, j2params = jax.device_get(jparams), jax.device_get(j2params)
+    ref = {}
+    setup = {"coati": dataclasses.asdict(tcfg), "coati2": dataclasses.asdict(tcfg2), "lr": LR,
+             "clip_grad": CLIP, "steps": STEPS, "step": step, "step2": step2,
+             "inject": INJECT, "moe_cf": MOE_E / 8}
+    ref.update(_pipeline_sequence_expert_inputs(root, jparams, jcfg, model, tcfg, step, batches,
+                                                keys, arrays))
+    np.savez(root / "batches.npz", **arrays)
+    (root / "setup.json").write_text(json.dumps(setup))
     jopt = jtrain.make_optimizer(jconfig.TrainConfig(lr=LR, clip_grad=CLIP))
     mesh = jax_make_mesh(2)
-    ref = {}
     for mode in ("pjit", "shard_map"):
         jstep = jtrain.make_train_step(mesh, jcfg, jopt, mode=mode, **step)
         placed = jax_replicate(mesh, jparams)
@@ -181,6 +202,153 @@ def inputs(tmp_path_factory):
     ref["coati2_tp_dims"] = _jax_dims(j2params, jax_param_specs(j2params, 2),
                                       coati2_state_from_coati_tpu)
     return root, ref
+
+
+INJECT = 5  # the token the trunk scenarios inject over
+MOE_E, MOE_D, MOE_F = 4, 16, 32
+
+
+def _gradient_grabber():
+    """An optax transformation that changes nothing and keeps the gradients
+    as its state: a jitted step then returns them."""
+    return optax.GradientTransformation(
+        lambda p: jax.tree_util.tree_map(jnp.zeros_like, p),
+        lambda g, s, p=None: (jax.tree_util.tree_map(jnp.zeros_like, g), g))
+
+
+def _trunk_batch(rng, n_tok, rows, width):
+    tokens = rng.integers(0, n_tok, size=(rows, width)).astype(np.int32)
+    y_next = np.full_like(tokens, -1)
+    y_next[:, :-1] = tokens[:, 1:]
+    y_next[rng.random(y_next.shape) < 0.15] = -1
+    return tokens, y_next
+
+
+def _port_single_device_steps(model, tcfg, step, batches, arrays, pick_key):
+    """The port's single-device steps from `model`'s weights on the global
+    batches with the given clip choices: losses, state, first clip norm."""
+    model = copy.deepcopy(model)
+    opt = ttrain.make_optimizer(jconfig.TrainConfig(lr=LR, clip_grad=CLIP), model)
+    single = ttrain.TrainStep(model, tcfg, opt, **step)
+    losses, norms = [], []
+    for i, batch in enumerate(batches):
+        m = single(None, hp.torch_batch(batch), pick_point=torch.tensor(arrays[f"batch{i}/{pick_key}"]))
+        losses.append([float(m[k]) for k in ("loss", "ar_loss", "clip_loss")])
+        norms.append(float(opt.last_grad_norm))
+    return {"losses": losses, "norms": norms,
+            "state": {k: v.detach().clone() for k, v in model.state_dict().items()}}
+
+
+def _pipeline_sequence_expert_inputs(root, jparams, jcfg, model, tcfg, step, batches, keys,
+                                     arrays):
+    """The inputs of the pipeline, sequence and expert scenarios (added to
+    `arrays`, the MoE to moe.npz) and coati_tpu's results on them: its
+    pipelined steps' gradients on make_pp_mesh(4, pipe=2) (four times the
+    single-device gradient there: see parallel/pp.py), its pipelined and
+    sequence-parallel logits, its sequence-parallel step and encode, its
+    single-device trunk step, dense attention and MoE."""
+    ref = {}
+    grab = _gradient_grabber()
+    jopt = jtrain.make_optimizer(jconfig.TrainConfig(lr=LR, clip_grad=CLIP))
+    unscale = 4.0  # data 2 x pipe 2
+    pp_mesh = jpp.make_pp_mesh(4, pipe=2)
+
+    # the composite step on make_pp_mesh(4, pipe=2): its first step's gradients
+    pp_params = jpp.shard_coati_params_pp(pp_mesh, jparams)
+    jstep = jpp.make_pp_coati_train_step(
+        pp_mesh, jcfg, pp_params, grab, n_microbatches=2,
+        **{k: v for k, v in step.items() if k != "do_clip"})
+    batch0 = {k: jax.device_put(jnp.asarray(v), batch_sharding(pp_mesh))
+              for k, v in batches[0].items()}
+    _, grads, _ = jstep(pp_params, grab.init(pp_params), keys[0], batch0)
+    ref["pp_grads"] = {k: v / unscale for k, v in gradients_from_coati_tpu(
+        params_to_state(jax.device_get(grads))).items()}
+    ref["pp_single_shard_pick"] = _port_single_device_steps(model, tcfg, step, batches, arrays,
+                                                            "pick_shard")
+    ref["pp_single"] = _port_single_device_steps(model, tcfg, step, batches, arrays, "pick")
+
+    # the bare trunk: pipelined logits, the pipelined AR step's gradients and
+    # the single-device AR step
+    xparams, xcfg = jparams.xformer, jcfg.xformer_config
+    rng = np.random.default_rng(95)
+    tokens, y_next = _trunk_batch(rng, xcfg.n_tok, 8, 24)
+    inj = rng.normal(size=(8, xcfg.n_embd)).astype(np.float32)
+    arrays.update({"trunk/tokens": tokens, "trunk/y_next": y_next, "trunk/inj": inj})
+    sharded = jpp.shard_params_pp(pp_mesh, xparams)
+    for m in (2, 4):
+        ref[f"pp_logits{m}"] = np.asarray(jpp.make_pp_forward_logits(
+            pp_mesh, xcfg, sharded, n_microbatches=m)(sharded, jnp.asarray(tokens)))
+    ref["pp_logits_inj"] = np.asarray(jpp.make_pp_forward_logits(
+        pp_mesh, xcfg, sharded, n_microbatches=2, inject_token=INJECT)(
+            sharded, jnp.asarray(tokens), jnp.asarray(inj)))
+    ar = jpp.make_pp_ar_train_step(pp_mesh, xcfg, sharded, grab, n_microbatches=2)
+    _, grads, _ = ar(sharded, grab.init(sharded), {"tokens": jnp.asarray(tokens),
+                                                    "y_next": jnp.asarray(y_next)})
+    ref["pp_ar_grads"] = {k: v / unscale for k, v in transformer_state_from_coati_tpu(
+        params_to_state(jax.device_get(grads))).items()}
+
+    def trunk_loss(p, tok, y):
+        logits = JT.forward_logits(p, xcfg, tok)
+        return jax_cross_entropy(logits.reshape(-1, xcfg.n_tok), y.reshape(-1))
+
+    loss, grads = jax.jit(jax.value_and_grad(trunk_loss))(xparams, jnp.asarray(tokens),
+                                                          jnp.asarray(y_next))
+    updates, _ = jopt.update(grads, jopt.init(xparams), xparams)
+    ref["trunk_step"] = {"loss": float(loss), "state": transformer_state_from_coati_tpu(
+        params_to_state(jax.device_get(optax.apply_updates(xparams, updates))))}
+
+    # sequence parallelism on make_sp_mesh(4, seq=2)
+    sp_mesh = jsp.make_sp_mesh(4, seq=2)
+    tokens, y_next = _trunk_batch(rng, xcfg.n_tok, 8, xcfg.n_seq)
+    inj = rng.normal(size=(8, xcfg.n_embd)).astype(np.float32)
+    enc = rng.integers(4, xcfg.n_tok, size=(8, xcfg.n_seq)).astype(np.int32)
+    enc[enc == step["stop_token"]] = 4
+    stop = step["stop_token"]
+    enc[0, [5, 20, 29]] = stop  # stops in both shards: the first counts
+    enc[1, [12, 13]] = stop  # adjacent, one shard
+    enc[2, 31] = stop  # the last position
+    enc[3, 0] = stop  # the first
+    enc[4, 16] = stop  # the second shard's first position
+    # rows 5-7: no stop, position 0
+    q, k, v = (rng.normal(size=(2, 32, 2, 8)).astype(np.float32) for _ in range(3))
+    arrays.update({"sp/tokens": tokens, "sp/y_next": y_next, "sp/inj": inj, "sp/enc_tokens": enc,
+                   "sp/q": q, "sp/k": k, "sp/v": v})
+    ref["sp_logits"] = np.asarray(jsp.make_sp_forward_logits(sp_mesh, xcfg)(
+        xparams, jnp.asarray(tokens)))
+    ref["sp_logits_inj"] = np.asarray(jsp.make_sp_forward_logits(sp_mesh, xcfg, INJECT)(
+        xparams, jnp.asarray(tokens), jnp.asarray(inj)))
+    ref["sp_encode"] = np.asarray(jsp.make_sp_encode(sp_mesh, xcfg, stop)(xparams,
+                                                                        jnp.asarray(enc)))
+
+    def ring_loss(q, k, v):
+        return jnp.sum(jax_causal_attention(q, k, v) ** 2)
+
+    ref["ring_out"] = np.asarray(jax.jit(jax_causal_attention)(q, k, v))
+    ref["ring_grads"] = [np.asarray(g) for g in jax.jit(jax.grad(ring_loss, (0, 1, 2)))(q, k, v)]
+    sp_step = jsp.make_sp_train_step(sp_mesh, xcfg, jopt)
+    params, _, loss = sp_step(xparams, jopt.init(xparams), jnp.asarray(tokens),
+                              jnp.asarray(y_next))
+    ref["sp_step"] = {"loss": float(loss), "state": transformer_state_from_coati_tpu(
+        params_to_state(jax.device_get(params)))}
+
+    # the MoE on the global batch, its capacity binding (cf E / 8)
+    moe = jax.device_get(jax.jit(jep.init_moe, static_argnums=(1, 2, 3))(
+        jax.random.PRNGKey(96), MOE_D, MOE_F, MOE_E))
+    x = np.random.default_rng(97).normal(size=(4, 16, MOE_D)).astype(np.float32)
+    np.savez(root / "moe.npz", **{f: np.asarray(getattr(moe, f)) for f in
+                                   ("router", "w_fc", "b_fc", "w_out", "b_out")})
+    arrays["ep/x"] = np.asarray(x)
+
+    def moe_loss(p, x):
+        out, aux = jep.moe_mlp(p, x, capacity_factor=MOE_E / 8)
+        return jnp.sum(out ** 2) + 0.01 * aux
+
+    out, aux = jax.jit(lambda p, x: jep.moe_mlp(p, x, capacity_factor=MOE_E / 8))(moe, x)
+    grads = jax.jit(jax.grad(moe_loss))(moe, x)
+    ref["moe"] = {"out": np.asarray(out), "aux": float(aux),
+                  "grads": {f: np.asarray(getattr(grads, f)) for f in
+                            ("router", "w_fc", "b_fc", "w_out", "b_out")}}
+    return ref
 
 
 def _jax_dims(jparams, specs, convert):
@@ -209,13 +377,14 @@ def _jax_dims(jparams, specs, convert):
 @pytest.fixture(scope="module")
 def world2(inputs):
     root, _ = inputs
-    return workers.run_world(root, 2, ["dp", "clip_gradient", "fsdp", "coati2_tp", "restart"])
+    return workers.run_world(root, 2, ["dp", "clip_gradient", "fsdp", "coati2_tp", "restart",
+                                       "pp", "pp_ar", "sp", "ep"])
 
 
 @pytest.fixture(scope="module")
 def world4(inputs, tmp_path_factory):
     root, _ = inputs
-    return workers.run_world(root, 4, ["tp_dp"])
+    return workers.run_world(root, 4, ["tp_dp", "pp", "pp_ar", "sp", "ep", "dryrun"])
 
 
 def assert_steps_match(mine, ref):
@@ -429,3 +598,138 @@ def test_pad_rows_repeats_the_first_row_to_a_multiple():
     padded = pad_rows(a, 4)
     assert padded.shape == (8, 2) and (padded[5:] == a[0]).all() and (padded[:5] == a).all()
     assert pad_rows(a, 5) is a
+
+
+# ------------------------------------------ pipeline, sequence, expert
+
+
+def _world(request, world):
+    return request.getfixturevalue(world)
+
+
+def _grads_close(mine, ref, atol=hp.ATOL, rtol=hp.RTOL):
+    assert mine.keys() == ref.keys()
+    for name, g in mine.items():
+        np.testing.assert_allclose(g.float().numpy(), np.asarray(ref[name]), atol=atol, rtol=rtol,
+                                   err_msg=name)
+
+
+def test_pipeline_composite_step_pipe_2_equals_coati_tpu_s_step(world2, inputs):
+    """The whole COATI step over pipe 2, 2 microbatches: EGNN, both trunk
+    passes, AR and global CLIP losses; two steps, held to coati_tpu's
+    single-device (pjit) step. The global-norm clip binds, and sees the
+    single-device gradient's norm."""
+    out, ref = world2["pp"], inputs[1]
+    assert_steps_match(out, ref["pjit"])
+    assert out["norms"][0] == pytest.approx(ref["pp_single"]["norms"][0], rel=1e-5)
+    assert min(out["norms"]) > CLIP
+
+
+def test_pipeline_composite_step_data_2_by_pipe_2(world4, inputs):
+    """Data 2 x pipe 2 with the clip choices coati_tpu's pipelined step draws
+    per data rank: the steps equal the single-device steps on those choices,
+    and the first step's reduced gradients are coati_tpu's on
+    make_pp_mesh(4, pipe=2) divided by the mesh's 4 ranks."""
+    out, ref = world4["pp"], inputs[1]
+    assert_steps_match(out, ref["pp_single_shard_pick"])
+    assert out["norms"][0] == pytest.approx(ref["pp_single_shard_pick"]["norms"][0], rel=1e-5)
+    _grads_close(out["grads"], ref["pp_grads"])
+
+
+def test_pipeline_stage_holds_only_its_layers_and_the_permute_rotates(world2):
+    out = world2["pp"]
+    blocks = {k.split(".")[3] for k in out["stage_keys"] if ".transformer.h." in k}
+    assert blocks == {"0"}  # stage 0 of 2 over 2 layers
+    assert any(k.startswith("point_encoder.") for k in out["stage_keys"])
+    assert out["route"] == "p2p"
+    for route in ("p2p", "all_gather"):
+        # stage 0 received stage 1's x; its x went to stage 1, which scaled it by 2
+        assert out["permuted"][route] == ([1.0, 1.0], [2.0, 2.0]), route
+
+
+@pytest.mark.parametrize("world", ["world2", "world4"])
+def test_pipeline_forward_logits_equal_coati_tpu_s(request, inputs, world):
+    out, ref = _world(request, world)["pp_ar"], inputs[1]
+    for key in ("pp_logits2", "pp_logits4", "pp_logits_inj"):
+        hp.close(out[key[3:]], ref[key], atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("world", ["world2", "world4"])
+def test_pipeline_ar_step_equals_the_single_device_step(request, inputs, world):
+    """The trunk's pipelined AR step against coati_tpu's single-device step,
+    and its reduced gradients against coati_tpu's pipelined ones / 4."""
+    out, ref = _world(request, world)["pp_ar"], inputs[1]
+    assert out["loss"] == pytest.approx(ref["trunk_step"]["loss"], rel=1e-5)
+    assert_steps_match({"losses": [out["loss"]], "state": out["state"]},
+                       {"losses": [ref["trunk_step"]["loss"]], "state": ref["trunk_step"]["state"]})
+    _grads_close(out["grads"], ref["pp_ar_grads"])
+
+
+@pytest.mark.parametrize("world", ["world2", "world4"])
+def test_sequence_parallel_forward_encode_and_ring_equal_coati_tpu_s(request, inputs, world):
+    """Ring attention over seq 2 (world 4: data 2 x seq 2): the logits with and
+    without injection, the encode's first [STOP] (rows with several stops,
+    with one at either end of a shard, with none), and the ring's output and
+    gradients against dense attention."""
+    out, ref = _world(request, world)["sp"], inputs[1]
+    hp.close(out["logits"], ref["sp_logits"], atol=2e-5, rtol=0)
+    hp.close(out["logits_inj"], ref["sp_logits_inj"], atol=2e-5, rtol=0)
+    hp.close(out["encode"], ref["sp_encode"], atol=2e-5, rtol=0)
+    hp.close(out["ring_out"], ref["ring_out"], atol=2e-6, rtol=0)
+    for mine, want in zip(out["ring_grads"], ref["ring_grads"]):
+        hp.close(mine, want, atol=5e-5, rtol=0)
+
+
+@pytest.mark.parametrize("world", ["world2", "world4"])
+def test_sequence_parallel_step_equals_coati_tpu_s_and_guards_raise(request, inputs, world):
+    out, ref = _world(request, world)["sp"], inputs[1]
+    assert_steps_match({"losses": [out["loss"]], "state": out["state"]},
+                       {"losses": [ref["sp_step"]["loss"]], "state": ref["sp_step"]["state"]})
+    assert len(out["errors"]) == 2
+    assert "exceeds cfg.n_seq" in out["errors"][0]
+    assert "divide evenly" in out["errors"][1]
+
+
+@pytest.mark.parametrize("world", ["world2", "world4"])
+def test_expert_parallel_forward_aux_and_gradients_equal_coati_tpu_s(request, inputs, world):
+    """Expert 2 (world 4: data 2 x expert 2) with capacity cf E / 8, which
+    drops tokens: the output, the load-balance loss and the gradients equal
+    coati_tpu's moe_mlp on the global batch; each rank holds 2 of 4
+    experts."""
+    out, ref = _world(request, world)["ep"], inputs[1]["moe"]
+    dropped = (np.abs(ref["out"]).reshape(-1, MOE_D).max(axis=1) == 0).sum()
+    assert dropped > 0, "the capacity does not bind"
+    hp.close(out["out"], ref["out"], atol=2e-5, rtol=0)
+    assert out["aux"] == pytest.approx(ref["aux"], rel=1e-5)
+    _grads_close(out["grads"], ref["grads"], atol=5e-5, rtol=0)
+    assert out["local_experts"] == MOE_E // 2
+
+
+def test_dryrun_multichip_world_4_prints_five_finite_legs(world4):
+    out = world4["dryrun"]
+    assert list(out["losses"]) == ["dp x tp", "fsdp", "dp x pp", "dp x sp", "dp x ep"]
+    assert all(np.isfinite(v) for v in out["losses"].values())
+    assert [line.split(" OK")[0] for line in out["lines"]] == [
+        f"dryrun_multichip(4) {leg}" for leg in out["losses"]]
+
+
+def test_stage_state_and_moe_conversion():
+    """stage_state keeps a stage's layers under their own keys and every
+    replicated key; merge_stage_states joins the stages back; a coati_tpu
+    MoeParams carries over field for field."""
+    state = {"xformer.emb.tok_emb.weight": torch.zeros(1),
+             **{f"xformer.transformer.h.{i}.ln_1.weight": torch.full((1,), float(i))
+                for i in range(4)},
+             "xformer.lm_head.weight": torch.ones(1)}
+    parts = [stage_state(state, 4, 2, s) for s in range(2)]
+    assert sorted(parts[1]) == ["xformer.emb.tok_emb.weight", "xformer.lm_head.weight",
+                                "xformer.transformer.h.2.ln_1.weight",
+                                "xformer.transformer.h.3.ln_1.weight"]
+    assert list(merge_stage_states(parts)) == list(state)
+    rng = np.random.default_rng(0)
+    moe = jep.MoeParams(*(rng.normal(size=shape).astype(np.float32) for shape in
+                          ((8, 4), (4, 8, 16), (4, 16), (4, 16, 8), (4, 8))))
+    params = moe_from_coati_tpu(moe, device="cpu")
+    for f in ("router", "w_fc", "b_fc", "w_out", "b_out"):
+        np.testing.assert_array_equal(getattr(params, f).detach().numpy(),
+                                      np.asarray(getattr(moe, f)))

@@ -311,7 +311,7 @@ def test_server_with_two_replicas_answers_as_one_device(server, coati_pair):
     """mesh of two devices: the model is wrapped in ShardedCOATI, one
     replica a device, and /embed and greedy /generate answer as the
     one-device server does (an odd number of rows pads the last replica);
-    continuous mode over two devices still refuses."""
+    continuous mode over two devices takes them too."""
     _, _, model, tok = coati_pair
     srv = CoatiInferenceServer(model, tok, port=0, flush_ms=30, mesh=["cpu", "cpu"])
     assert isinstance(srv.frontend.model, ShardedCOATI) and srv.frontend.model.n_devices == 2
@@ -325,18 +325,19 @@ def test_server_with_two_replicas_answers_as_one_device(server, coati_pair):
         assert out == _post(server, "/generate", {"embeddings": h, "k": 1})["smiles"]
     finally:
         srv.stop()
-    with pytest.raises(NotImplementedError, match="several devices"):
-        CoatiInferenceServer(model, tok, mesh=[torch.device("cpu"), torch.device("cpu")],
-                             continuous=True)
+    srv = CoatiInferenceServer(model, tok, mesh=[torch.device("cpu"), torch.device("cpu")],
+                               continuous=True)
+    assert isinstance(srv.frontend.model, ShardedCOATI) and srv._devices == [
+        torch.device("cpu")] * 2
 
 
 # -------------------------------------------------------- continuous mode
 
 
-def _continuous_round(model, tok, h):
+def _continuous_round(model, tok, h, mesh=None):
     """Greedy /generate of h through a continuous server, and the batcher
     its (k, inv_temp) got; the top_p request goes to a micro-batcher."""
-    srv = CoatiInferenceServer(model, tok, port=0, continuous=True, n_slots=4)
+    srv = CoatiInferenceServer(model, tok, port=0, continuous=True, n_slots=4, mesh=mesh)
     srv.start()
     try:
         out = _post(srv, "/generate", {"embeddings": h, "k": 1})["smiles"]
@@ -353,6 +354,17 @@ def test_continuous_mode_equals_micro_batched_greedy_coati(coati_pair):
     h = model.encode_tokens(_token_rows(tok, SMILES), tok).numpy()
     h = np.concatenate([h, h * 1.5]).tolist()  # 12 requests over 4 slots
     out = _continuous_round(model, tok, h)
+    assert out == model.hclip_to_2d_batch(np.asarray(h, np.float32), tok, k=1)
+
+
+def test_continuous_mode_over_two_devices_answers_as_one_device(coati_pair):
+    """continuous=True over ["cpu", "cpu"]: the slot pool split over the two
+    devices, each applying its replica's token MLP; greedy /generate equals
+    the one-device model's decode, row for row."""
+    _, _, model, tok = coati_pair
+    h = model.encode_tokens(_token_rows(tok, SMILES), tok).numpy()
+    h = np.concatenate([h, h * 1.5]).tolist()  # 12 requests over 4 slots
+    out = _continuous_round(model, tok, h, mesh=["cpu", "cpu"])
     assert out == model.hclip_to_2d_batch(np.asarray(h, np.float32), tok, k=1)
 
 

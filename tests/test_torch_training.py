@@ -58,6 +58,9 @@ from coati_tpu_torch.training.diagnostics import (
 )
 from coati_tpu_torch.training.logger import COATILogger
 from tests import torch_port_helpers as hp
+from tests.torch_port_helpers import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SMILES = ["CCO", "c1ccccc1", "CC(=O)O", "CCN(CC)CC", "OCC1OC(O)C(O)C(O)C1O", "CC(C)C",
           "NC(=O)c1ccc(N)cc1", "CC1=CC(=O)C=CC1=O"]

@@ -20,6 +20,9 @@ from coati_tpu.models.io import params_to_state
 
 from coati_tpu_torch.models import transformer as ttr
 from coati_tpu_torch.models.convert import transformer_state_from_coati_tpu
+from tests.torch_port_helpers import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ATOL, RTOL = 3e-5, 1e-4
 STOP, UNK = 2, 1

@@ -5,12 +5,16 @@ the CPU (init_method file://, one torch thread a rank).
 The test process writes, under one directory: `setup.json` (the model
 sizes, the learning rate, the clip), `weights.npz` / `weights2.npz` (the
 port's state dicts of one COATI and one COATI2, numpy, keyed by the
-reference's names) and `batches.npz` (the global batches of each step and
-the clip-token choices). Each rank runs the scenarios named for its world
-on its rows of every global batch; rank 0 writes `results<world>.pt`."""
+reference's names), `batches.npz` (the global batches of each step and
+the clip-token choices, and the inputs of the pipeline, sequence and expert
+scenarios under `trunk/`, `sp/` and `ep/`) and `moe.npz` (one MoeParams).
+Each rank runs the scenarios named for its world on its rows of every
+global batch; rank 0 writes `results<world>.pt`."""
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 from pathlib import Path
 
@@ -21,9 +25,14 @@ import torch.distributed as dist
 from coati_tpu_torch.data.batch_pipe import batch_rows
 from coati_tpu_torch.models import coati as tco
 from coati_tpu_torch.models import coati2 as t2
-from coati_tpu_torch.parallel.comm import all_gather_rows
+from coati_tpu_torch.models.convert import moe_from_coati_tpu
+from coati_tpu_torch.parallel import ep as tep
+from coati_tpu_torch.parallel import pp as tpp
+from coati_tpu_torch.parallel import sp as tsp
+from coati_tpu_torch.parallel.comm import all_gather_rows, gather_rows, permute_route, ring_permute
+from coati_tpu_torch.parallel.dryrun import dryrun_multichip
 from coati_tpu_torch.parallel.fsdp import FullyShardedPlacement, fsdp_specs
-from coati_tpu_torch.parallel.mesh import make_hybrid_mesh, make_mesh
+from coati_tpu_torch.parallel.mesh import axis_groups, make_hybrid_mesh, make_mesh
 from coati_tpu_torch.parallel.placement import ReplicatedPlacement, resolve_placement
 from coati_tpu_torch.parallel.tp import TensorParallelPlacement, make_tp_mesh
 from coati_tpu_torch.training import config as tconfig
@@ -272,6 +281,184 @@ def scenario_restart(root, setup, batches):
             "params": {n: p.detach().clone() for n, p in model.named_parameters()}}
 
 
+class CaptureGradients:
+    """An optimizer that only keeps the gradients it is handed: the reduced
+    gradients of a step, before any update."""
+
+    def __init__(self, named_parameters):
+        self.named = list(named_parameters)
+        self.grads = None
+
+    def step(self):
+        self.grads = {n: p.grad.detach().clone() for n, p in self.named}
+
+    def zero_grad(self, set_to_none=True):
+        for _, p in self.named:
+            p.grad = None
+
+
+def _data_rows(batches, key, n_data, data_rank):
+    v = batches[key]
+    lo, hi = data_rank * len(v) // n_data, (data_rank + 1) * len(v) // n_data
+    return torch.tensor(v[lo:hi])
+
+
+def scenario_pp(root, setup, batches):
+    """The composite COATI step over (data, pipe = 2): the steps of the
+    saved batches (world 2: one data rank with the global batch's clip
+    choices; world 4: two, with the per-rank choices coati_tpu's pipelined
+    step draws), the reduced gradients of the first step, and the
+    permute's routes."""
+    mesh = tpp.make_pp_mesh(pipe=2, device_type="cpu")
+    _, pipe_group, n_data, _, data_rank, stage = axis_groups(mesh, "pipe")
+    pick_key = "pick" if n_data == 1 else "pick_shard"
+
+    def run(optimizer_of, steps):
+        model, cfg = coati_model(root, setup)
+        tpp.shard_coati_params_pp(mesh, model)
+        optimizer = optimizer_of(model)
+        step = tpp.make_pp_coati_train_step(mesh, cfg, model, optimizer, n_microbatches=2,
+                                            **{k: v for k, v in setup["step"].items()
+                                               if k != "do_clip"})
+        losses, norms = [], []
+        for i in range(steps):
+            rows = batches[f"batch{i}/tokens"].shape[0]
+            lo, hi = data_rank * rows // n_data, (data_rank + 1) * rows // n_data
+            batch = rows_of(batches, "batch", i, lo, hi)
+            pick = batch[pick_key]
+            batch = {k: v for k, v in batch.items() if not k.startswith("pick")}
+            metrics = step(None, batch, pick_point=pick)
+            losses.append([float(metrics[k]) for k in ("loss", "ar_loss", "clip_loss")])
+            norms.append(float(getattr(optimizer, "last_grad_norm", 0.0) or 0.0))
+        return model, optimizer, losses, norms
+
+    model, _, losses, norms = run(lambda m: tpp.make_pp_optimizer(train_config(setup), mesh, m),
+                                  setup["steps"])
+    state = tpp.gather_pp_state(mesh, model)
+    model, capture, _, _ = run(lambda m: CaptureGradients(m.named_parameters()), 1)
+    grads = tpp.gather_stages(mesh, capture.grads)
+    local_keys = sorted(k for k, _ in model.named_parameters())
+    # the permute by both routes (the card's gloo ranks take the all-gather)
+    permuted = {}
+    for route in ("p2p", "all_gather"):
+        x = torch.full((2,), float(stage), requires_grad=True)
+        y = ring_permute(x, pipe_group, route=route)
+        (y * (stage + 1)).sum().backward()
+        permuted[route] = (y.tolist(), x.grad.tolist())
+    return {"losses": losses, "state": state, "norms": norms, "grads": grads,
+            "stage_keys": local_keys if stage == 0 else None,
+            "route": permute_route(x, pipe_group), "permuted": permuted}
+
+
+def scenario_pp_ar(root, setup, batches):
+    """The bare trunk over (data, pipe = 2): pipelined logits with and
+    without injection (2 and 4 microbatches), one AR step, and the reduced
+    gradients of that step."""
+    mesh = tpp.make_pp_mesh(pipe=2, device_type="cpu")
+    data_group, _, n_data, _, data_rank, _ = axis_groups(mesh, "pipe")
+    tokens = _data_rows(batches, "trunk/tokens", n_data, data_rank).long()
+    y_next = _data_rows(batches, "trunk/y_next", n_data, data_rank).long()
+    inj = _data_rows(batches, "trunk/inj", n_data, data_rank)
+    out = {}
+
+    def trunk():
+        model, cfg = coati_model(root, setup)
+        return tpp.shard_params_pp(mesh, model.xformer), cfg.xformer_config
+
+    model, xcfg = trunk()
+    with torch.no_grad():
+        for m in (2, 4):
+            out[f"logits{m}"] = gather_rows(
+                tpp.make_pp_forward_logits(mesh, xcfg, model, m)(tokens), data_group)
+        fwd = tpp.make_pp_forward_logits(mesh, xcfg, model, 2, inject_token=setup["inject"])
+        out["logits_inj"] = gather_rows(fwd(tokens, inj), data_group)
+    optimizer = tpp.make_pp_optimizer(train_config(setup), mesh, model)
+    out["loss"] = float(tpp.make_pp_ar_train_step(mesh, xcfg, model, optimizer,
+                                                  n_microbatches=2)(tokens, y_next)["loss"])
+    out["state"] = tpp.gather_pp_state(mesh, model)
+    model, xcfg = trunk()
+    capture = CaptureGradients(model.named_parameters())
+    tpp.make_pp_ar_train_step(mesh, xcfg, model, capture, n_microbatches=2)(tokens, y_next)
+    out["grads"] = tpp.gather_stages(mesh, capture.grads)
+    return out
+
+
+def scenario_sp(root, setup, batches):
+    """The trunk over (data, seq = 2): logits with and without injection,
+    ring attention's gradients, one AR step, the encode, and the guards."""
+    mesh = tsp.make_sp_mesh(seq=2, device_type="cpu")
+    data_group, seq_group, n_data, n_shards, data_rank, shard = axis_groups(mesh, "seq")
+    model, cfg = coati_model(root, setup)
+    trunk, xcfg = model.xformer, cfg.xformer_config
+    tokens = _data_rows(batches, "sp/tokens", n_data, data_rank).long()
+    y_next = _data_rows(batches, "sp/y_next", n_data, data_rank).long()
+    inj = _data_rows(batches, "sp/inj", n_data, data_rank)
+    enc = _data_rows(batches, "sp/enc_tokens", n_data, data_rank).long()
+    out = {}
+    with torch.no_grad():
+        out["logits"] = gather_rows(tsp.make_sp_forward_logits(mesh, xcfg, trunk)(tokens),
+                                    data_group)
+        fwd = tsp.make_sp_forward_logits(mesh, xcfg, trunk, inject_token=setup["inject"])
+        out["logits_inj"] = gather_rows(fwd(tokens, inj), data_group)
+        out["encode"] = gather_rows(
+            tsp.make_sp_encode(mesh, xcfg, trunk, setup["step"]["stop_token"])(enc), data_group)
+    # ring attention alone: this shard's rows, the gradients gathered over seq
+    t = batches["sp/q"].shape[1] // n_shards
+    q, k, v = (torch.tensor(batches[f"sp/{n}"][:, shard * t:(shard + 1) * t]).requires_grad_(True)
+               for n in ("q", "k", "v"))
+    att = tsp.ring_causal_attention(q, k, v, seq_group)
+    att.square().sum().backward()
+
+    def whole(a):  # the shards of (B, T_local, ...) in sequence order
+        return gather_rows(a.detach().transpose(0, 1).contiguous(), seq_group).transpose(0, 1)
+
+    out["ring_out"] = whole(att)
+    out["ring_grads"] = [whole(g) for g in (q.grad, k.grad, v.grad)]
+    # one AR step
+    optimizer = ttrain.make_optimizer(train_config(setup), trunk)
+    out["loss"] = float(tsp.make_sp_train_step(mesh, xcfg, trunk, optimizer)(tokens, y_next))
+    out["state"] = {k: v.detach().clone() for k, v in trunk.state_dict().items()}
+    # the guards
+    errors = []
+    for width in (2 * xcfg.n_seq, xcfg.n_seq - 1):
+        try:
+            tsp.make_sp_forward_logits(mesh, xcfg, trunk)(torch.zeros((2, width),
+                                                                      dtype=torch.long))
+        except ValueError as ex:
+            errors.append(str(ex))
+    out["errors"] = errors
+    return out
+
+
+def scenario_ep(root, setup, batches):
+    """The MoE over (data, expert = 2) with a binding capacity: the output,
+    the load-balance loss and the gradients of sum(out^2) + 0.01 aux, the
+    experts' gathered over the expert group."""
+    mesh = tep.make_ep_mesh(expert=2, device_type="cpu")
+    data_group, expert_group, n_data, _, data_rank, _ = axis_groups(mesh, "expert")
+    whole = moe_from_coati_tpu(dict(np.load(root / "moe.npz")), device="cpu")
+    params = tep.shard_params_ep(mesh, whole)
+    x = _data_rows(batches, "ep/x", n_data, data_rank)
+    cf = setup["moe_cf"]
+    with torch.no_grad():
+        out, aux = tep.moe_mlp(params, x, cf, data_group, expert_group)
+    capture = CaptureGradients(params.named_parameters())
+    loss = tep.make_ep_train_step(mesh, params, capture, cf)(x)
+    grads = {n: (g if n == "router" else gather_rows(g, expert_group))
+             for n, g in capture.grads.items()}
+    return {"out": gather_rows(out, data_group), "aux": float(aux), "loss": float(loss),
+            "grads": grads, "local_experts": int(params.w_fc.shape[0])}
+
+
+def scenario_dryrun(root, setup, batches):
+    """coati_tpu_torch.parallel.dryrun over this world, and what rank 0
+    printed."""
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        losses = dryrun_multichip(dist.get_world_size())
+    return {"losses": losses, "lines": printed.getvalue().splitlines()}
+
+
 SCENARIOS = {
     "dp": scenario_dp,
     "clip_gradient": scenario_clip_gradient,
@@ -279,6 +466,11 @@ SCENARIOS = {
     "coati2_tp": scenario_coati2_tp,
     "tp_dp": scenario_tp_dp,
     "restart": scenario_restart,
+    "pp": scenario_pp,
+    "pp_ar": scenario_pp_ar,
+    "sp": scenario_sp,
+    "ep": scenario_ep,
+    "dryrun": scenario_dryrun,
 }
 
 
