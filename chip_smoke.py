@@ -169,7 +169,25 @@ number is taken.
     decreases and improves, the hills displace the samples more); then
     run_metadynamics from that molecule, 20 steps of 32 decodes. Seconds of
     each; K2 and K1 int8 held at the shapes and positions it ran.
-14. multi_device: multi-device training and sharded inference on the one
+14. examples: the port's user entry points (coati_tpu_torch/examples/),
+    each through its main at the full width of the model it loads, after a
+    COATI2 grande document, a DUE model of Crippen logP and the fixture's
+    COATI_dataset shards are made for them: tutorial, chembl_analysis,
+    generation_examples and metadynamics_example on the trained document;
+    coati2_tutorial (its conditioned batch mixes prefixes of 5 and 7
+    tokens: generate_prefix_batch prefills the shorter and forces the
+    longer through its own); finetune_lora, whose document is reloaded;
+    serve --tiny, over the trained document and over the COATI2 document,
+    two rounds of requests each; train_grande and train_coati2 --dry_run,
+    then one epoch of 3 steps each over the shards. Then the
+    generation-quality protocol of scripts/eval_generation_quality.py on
+    the trained document in its loader's setting: greedy round trips of
+    2,048 train and 2,048 holdout molecules of the corpus's split and 10 x
+    1,024 draws behind [SET][chembl_mols][SMILES] at k 10,000, inverse
+    temperature 1.75, each number beside docs/eval_generation_quality.json's
+    and within its band (round trips 0.04, fraction valid and unique 0.03).
+    Seconds of each example; K2 and K1 held at every shape and position.
+15. multi_device: multi-device training and sharded inference on the one
     card. (a) World 1 over NCCL: one float32 step of the grande recipe at
     full width (batch 160 of the fixture through the recipe's transform,
     seeded clip-token choices) as train_autoencoder's step over a world-1
@@ -191,7 +209,9 @@ number is taken.
     (d) World 2 on the one card over gloo: ring_permute carries a CUDA
     tensor forward and backward (its route printed); the composite grande
     step through the pipeline (pipe 2; 2 and 4 microbatches; fp32) held to
-    (a)'s single-device step, each rank launching K3, K4, K5f and K5b, then
+    (a)'s single-device step, and its reduced fp32 gradients before the
+    optimizer held to that step's within 1e-4 x max(1, max |grad|), each
+    rank launching K3, K4, K5f and K5b, then
     the bf16 pipelined step's seconds (median of 10); the trunk's AR step
     by ring attention (seq 2, T 80, 40 a shard; fp32) held to the
     single-device step, and make_sp_encode of 1,024 corpus SMILES (T 250)
@@ -203,7 +223,7 @@ number is taken.
     every token equal to the single-device engine's, seconds of both; then a
     server in continuous mode over the two devices answers /generate as the
     single-device one.
-15. report: the card's name and power limit, one `kernels` JSON line, and
+16. report: the card's name and power limit, one `kernels` JSON line, and
     as the last line {"ok": true, "device": {...}}.
 
 Every number printed is measured in this run, on this card, except the
@@ -2955,6 +2975,231 @@ def phase_metadynamics(prod, tok):
     return counts
 
 
+# ------------------------------------------------------------- examples
+
+QUALITY_RECORD = ROOT / "docs" / "eval_generation_quality.json"
+# the generation-quality protocol of scripts/eval_generation_quality.py
+QUALITY = dict(rt_sample=2048, batches=10, batch_size=1024, k=10_000, inv_temp=1.75)
+# |port - record| allowed: about 3 binomial standard deviations at 2,048
+# round trips and 10,240 draws
+QUALITY_BANDS = {"greedy_roundtrip_train": 0.04, "greedy_roundtrip_holdout": 0.04,
+                 "fraction_valid": 0.03, "fraction_unique": 0.03}
+EXAMPLE_DUE_ROWS = 1024
+
+
+def _example_inputs(prod, tok, work: Path) -> dict:
+    """What the examples read, made before the path starts: a COATI2
+    grande document of seeded fresh weights (the coati2_12_12 tokenizer,
+    so that the [PROPS] branch runs), a DUE model of Crippen logP over the
+    trained document's embeddings of corpus SMILES, and the fixture as
+    COATI_dataset shards."""
+    import multiprocessing
+
+    from coati_tpu_torch.chem.crippen import mol_logp
+    from coati_tpu_torch.models.io import model_to_state, serialize_model
+    from coati_tpu_torch.regression.due import DueConfig, train_due
+    from coati_tpu_torch.training.train_coati2 import Coati2TrainConfig, fresh_model
+
+    c2tok = _coati2_tokenizer()
+    config = Coati2TrainConfig(**COATI2_GRANDE)
+    model = fresh_model(config.model_config(c2tok.n_token), torch.device("cpu"), seed=0)
+    coati2_doc = work / "coati2_grande.pkl"
+    coati2_doc.write_bytes(serialize_model(
+        train_args={"tokenizer_vocab": "coati2_12_12"}, dataset_summary={},
+        model_state=model_to_state(model), model_kwargs=config.model_kwargs(c2tok.n_token)))
+    del model
+    smiles = _coati2_corpus(tok, EXAMPLE_DUE_ROWS)
+    with multiprocessing.get_context("spawn").Pool(max(1, min(8, os.cpu_count() - 1))) as pool:
+        y = np.asarray(pool.map(mol_logp, smiles, chunksize=64), np.float32)
+    x = prod.encode_tokens(_tokens(tok, smiles, tok.n_seq), tok).float().cpu().numpy()
+    due = train_due(x, y, config=DueConfig(input_dim=x.shape[1]), steps=500, batch_size=512,
+                    seed=0, verbose=False, device=prod.device).remove_spectral_norm()
+    due_path = work / "due_logp.pkl"
+    due.save(str(due_path))
+    write_fixture_shards(work / "data")
+    return {"coati2_doc": str(coati2_doc), "due": str(due_path), "data": str(work / "data")}
+
+
+def _quality_line(quality: dict, setting: dict) -> dict:
+    """The protocol's numbers beside the record's, each with its band."""
+    record = json.loads(QUALITY_RECORD.read_text())
+    bulk, rec_bulk = quality["bulk"], record["bulk"]
+    rec_valid = rec_bulk["fraction_valid"] * rec_bulk["n_samples"]
+    pairs = {
+        "greedy_roundtrip_train": (quality["greedy_roundtrip_train"],
+                                   record["greedy_roundtrip_train"]),
+        "greedy_roundtrip_holdout": (quality["greedy_roundtrip_holdout"],
+                                     record["greedy_roundtrip_holdout"]),
+        "fraction_valid": (bulk["fraction_valid"], rec_bulk["fraction_valid"]),
+        "fraction_unique": (bulk["fraction_unique"], rec_bulk["fraction_unique"]),
+        "fraction_unique_canonical": (bulk["fraction_unique_canonical"],
+                                      rec_bulk["n_unique_canonical"] / rec_valid),
+        "mean_len": (bulk["mean_len"], rec_bulk["mean_len"]),
+    }
+    rows = {}
+    for key, (port, rec) in pairs.items():
+        rows[key] = {"port": port, "record": rec, "diff": port - rec}
+        if key in QUALITY_BANDS:
+            rows[key]["band"] = QUALITY_BANDS[key]
+            rows[key]["ok"] = abs(port - rec) <= QUALITY_BANDS[key]
+    return {"phase": "examples", "part": "generation_quality", "doc": DOC.name,
+            "record": str(QUALITY_RECORD.relative_to(ROOT)), "corpus": CORPUS.name, **QUALITY,
+            "setting": setting, "rt_rows": [quality["rt_rows_train"], quality["rt_rows_holdout"]],
+            "n_samples": bulk["n_samples"], "numbers": rows}
+
+
+def phase_examples(prod, tok):
+    """The port's user entry points (coati_tpu_torch/examples/) on the card,
+    each through its main at the full width of the model it loads: (a)
+    tutorial, chembl_analysis (one batch of 256 draws), generation_examples
+    (with the DUE model) and metadynamics_example (10 steps) on the trained
+    document; coati2_tutorial on the COATI2 grande document, whose
+    conditioned batch mixes prefixes of 5 and 7 tokens; finetune_lora (20
+    steps) and its document reloaded; serve --tiny, over the trained
+    document and --coati2, each answering two rounds of requests;
+    train_grande and train_coati2 --dry_run, then one epoch of 3 steps each
+    over the fixture's shards. (b) The generation-quality protocol of
+    scripts/eval_generation_quality.py on the trained document in the
+    setting its loader gives, through chembl_analysis's functions, beside
+    docs/eval_generation_quality.json: round trips of 2,048 train and 2,048
+    holdout molecules, 10 x 1,024 draws. Each example's seconds on a line
+    of its own; K2 and K1 held at every shape and position the path ran.
+    Returns the launch counts of the path."""
+    from coati_tpu_torch.examples import (
+        chembl_analysis,
+        coati2_tutorial,
+        finetune_lora,
+        generation_examples,
+        metadynamics_example,
+        serve,
+        train_coati2,
+        train_grande,
+    )
+    from coati_tpu_torch.examples import tutorial
+    from coati_tpu_torch.models.io import load_e3gnn_smiles_clip_e2e
+
+    doc = str(DOC)
+    seconds = {}
+    with tempfile.TemporaryDirectory() as work:
+        work = Path(work)
+        start = time.perf_counter()
+        inputs = _example_inputs(prod, tok, work)
+        emit({"phase": "examples", "part": "inputs", "seconds": time.perf_counter() - start})
+
+        def run(name, module, *args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = module.main(list(args))
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t0
+            emit({"phase": "examples", "example": name, "args": list(args),
+                  "seconds": seconds[name]})
+            return out
+
+        logs = ["--output_dir", str(work / "logs"), "--model_dir", str(work / "models")]
+        with record_shapes() as (full, decode):
+            _zero_counts()  # the path starts here
+            out = {
+                "tutorial": run("tutorial", tutorial, "--doc_url", doc),
+                "chembl_analysis": run("chembl_analysis", chembl_analysis, "--doc_url", doc,
+                                       "--batches", "1", "--batch_size", "256"),
+                "coati2_tutorial": run("coati2_tutorial", coati2_tutorial, "--doc_url",
+                                       inputs["coati2_doc"]),
+                "generation_examples": run("generation_examples", generation_examples,
+                                           "--doc_url", doc, "--due_model", inputs["due"]),
+                "metadynamics_example": run("metadynamics_example", metadynamics_example,
+                                            "--doc_url", doc, "--due_qed", inputs["due"],
+                                            "--steps", "10"),
+                "finetune_lora": run("finetune_lora", finetune_lora, "--doc_url", doc,
+                                     "--steps", "20", "--out", str(work / "lora.pkl")),
+                "serve_tiny": run("serve_tiny", serve, "--tiny", "--port", "0", "--requests",
+                                  "2"),
+                "serve": run("serve", serve, "--doc_url", doc, "--port", "0", "--max_batch",
+                             "64", "--requests", "2"),
+                "serve_coati2": run("serve_coati2", serve, "--coati2", "--doc_url",
+                                    inputs["coati2_doc"], "--port", "0", "--max_batch", "64",
+                                    "--requests", "2"),
+                "train_grande_dry_run": run("train_grande_dry_run", train_grande, "--dry_run",
+                                            *logs),
+                "train_grande": run("train_grande", train_grande, "--data_dir", inputs["data"],
+                                    "--n_epochs", "1", "--max_steps_per_epoch", "3", *logs),
+                "train_coati2_dry_run": run("train_coati2_dry_run", train_coati2, "--dry_run",
+                                            *logs),
+                "train_coati2": run("train_coati2", train_coati2, "--data_dir", inputs["data"],
+                                    "--n_epochs", "1", "--max_steps_per_epoch", "3", *logs),
+            }
+            tuned, ttok = load_e3gnn_smiles_clip_e2e(str(work / "lora.pkl"))
+            tuned_h = tuned.encode_tokens(_tokens(ttok, BENCH_SMILES, ttok.n_seq), ttok)
+            del tuned
+            # (b) the generation-quality protocol
+            t0 = time.perf_counter()
+            model, qtok = load_e3gnn_smiles_clip_e2e(doc)  # the loader's setting
+            xcfg = model.config.xformer_config
+            setting = {"dtype": model.config.dtype,
+                       "kv": "int8" if xcfg.kv_quantized else str(xcfg.compute_dtype)[6:]}
+            quality = chembl_analysis.generation_quality(model, qtok, str(CORPUS), **QUALITY)
+            torch.cuda.synchronize()
+            seconds["generation_quality"] = time.perf_counter() - t0
+            del model
+            counts = _counts()  # and ends here
+    line = _quality_line(quality, setting)
+    line["seconds"] = seconds["generation_quality"]
+    emit(line)
+    tut, gen, c2 = out["tutorial"], out["generation_examples"], out["coati2_tutorial"]
+    emit({"phase": "examples", "part": "results",
+          "tutorial": {k: tut[k] for k in ("round_trip_exact", "analogs_valid",
+                                           "analogs_unique")},
+          "chembl_analysis": {"s2s_nll": out["chembl_analysis"]["s2s_nll"].tolist(),
+                              "fraction_valid": out["chembl_analysis"]["fraction_valid"],
+                              "fraction_unique": out["chembl_analysis"]["fraction_unique"]},
+          "coati2_tutorial": {"noise": c2["noise"], "prefix_lengths": sorted(
+              set(c2["prefix_lengths"]))},
+          "generation_examples": {"bulk_valid": gen["bulk_valid"],
+                                  "bulk_unique": gen["bulk_unique"],
+                                  "analogs_valid": gen["analogs_valid"],
+                                  "due_mean_top": float(np.max(gen["due_mean"]))},
+          "metadynamics_example": {k: out["metadynamics_example"][k] for k in (
+              "molecules_found", "best_smiles", "best_score")},
+          "finetune_lora": {"losses": out["finetune_lora"]["losses"]},
+          "serve": {k: {e: max(v) for e, v in out[k]["seconds"].items()}
+                    for k in ("serve_tiny", "serve", "serve_coati2")},
+          "train_grande": [h[3:] for h in out["train_grande"]["results"]["history"]],
+          "train_coati2": [h[3:] for h in out["train_coati2"]["results"]["history"]],
+          "seconds": seconds, "launches": counts})
+    check(tut["embeddings"].shape == (6, 256) and np.isfinite(tut["embeddings"]).all(),
+          "examples: tutorial's embeddings")
+    check(bool(np.isfinite(out["chembl_analysis"]["s2s_nll"]).all()),
+          "examples: a likelihood is not finite")
+    c2tok = _coati2_tokenizer()
+    prefixes = [c2tok.tokenize_text(c, pad=False) for c in coati2_tutorial.CONDITIONS
+                for _ in range(coati2_tutorial.N_CONDITIONED)]
+    check(c2["embeddings"].shape == (2, 512) and sorted(set(c2["prefix_lengths"])) == [5, 7]
+          and all(row[: len(p)].tolist() == p
+                  for row, p in zip(c2["conditioned_tokens"], prefixes)),
+          "examples: coati2_tutorial's conditioned rows lost their prefixes")
+    check(len(gen["screened"]) == 16 and np.isfinite(gen["due_mean"]).all(),
+          "examples: generation_examples' screen")
+    check(out["metadynamics_example"]["molecules_found"] > 0,
+          "examples: metadynamics_example found no molecule")
+    check(bool(np.isfinite(out["finetune_lora"]["losses"]).all())
+          and bool(torch.isfinite(tuned_h).all()), "examples: finetune_lora")
+    check(all(out[k]["healthz"]["status"] == "ok" and len(out[k]["generated"]) == 4
+              for k in ("serve_tiny", "serve", "serve_coati2")), "examples: serve")
+    for name in ("train_grande_dry_run", "train_grande", "train_coati2_dry_run", "train_coati2"):
+        history = out[name]["results"]["history"]
+        check(len(history) == (4 if "dry_run" in name else 3)
+              and all(np.isfinite(h[3]) for h in history), f"examples: {name}'s steps")
+    check(all(counts[k] > 0 for k in ("flash_causal_attention", "decode_attention",
+                                      *TRAINING_KERNELS)),
+          f"examples: launches {counts}")
+    hold_path_shapes("examples", full)
+    hold_decode_positions("examples", decode)
+    missed = {k: v for k, v in line["numbers"].items() if not v.get("ok", True)}
+    check(not missed, f"examples: the generation-quality protocol misses the record's bands: "
+          f"{missed}")
+    return counts
+
+
 # ------------------------------------------------------------- multi_device
 
 MD_LR = 5e-4  # the grande recipe's
@@ -3039,6 +3284,46 @@ def _md_compare(label, losses, state, ref):
     check(rel <= 1e-5 and out["param_max_abs_diff"] <= 3 * MD_LR
           and out["share_within_1e-3_lr"] >= 0.999,
           f"{label}: the step differs from the single-device step: {out}")
+    return out
+
+
+def _capture_grads(optimizer, named_parameters) -> dict:
+    """Makes `optimizer.step` first copy every parameter's gradient, as the
+    step reduced it and before the clip and the update, into the dict it
+    returns (keyed by parameter name, on the CPU)."""
+    names = {id(p): n for n, p in named_parameters}
+    grads = {}
+    step = optimizer.step
+
+    def step_keeping_grads(*args, **kwargs):
+        grads.clear()
+        grads.update({names[id(p)]: (p.grad.detach().cpu().clone() if p.grad is not None
+                                     else torch.zeros(p.shape))  # a zero gradient, as optax
+                      for g in optimizer.param_groups for p in g["params"]})
+        return step(*args, **kwargs)
+
+    optimizer.step = step_keeping_grads
+    return grads
+
+
+def _md_grad_compare(label, grads, ref):
+    """A step's reduced fp32 gradients against the single-device step's,
+    within train_fp32_vs_plain's tolerance: 1e-4 x max(1, max |ref|) for
+    each parameter; the worst parameter by its share of that tolerance."""
+    check(grads.keys() == ref.keys(), f"{label}: gradients of other parameters than the "
+          "reference's")
+    worst = None
+    for name, want in ref.items():
+        diff = float((grads[name].float() - want.float()).abs().max())
+        tol = 1e-4 * max(1.0, float(want.abs().max()))
+        if worst is None or diff / tol > worst["share_of_tol"]:
+            worst = {"param": name, "max_abs_diff": diff, "tol": tol, "share_of_tol": diff / tol,
+                     "ref_max_abs": float(want.abs().max())}
+    out = {"n_params": len(ref), "worst": worst,
+           "max_abs_diff": max(float((grads[k].float() - v.float()).abs().max())
+                               for k, v in ref.items())}
+    check(worst["share_of_tol"] <= 1.0, f"{label}: a reduced gradient differs from the "
+          f"single-device step's: {out}")
     return out
 
 
@@ -3155,9 +3440,11 @@ def phase_multi_device():
             step, _, tok = _md_step(config, None, None, "pjit")
             batch = _md_batch(config, tok)
             rows, pick = _md_rows(batch, 0, config.batch_size)
+            grads = _capture_grads(step.optimizer, step.model.named_parameters())
             metrics = step(None, rows, pick_point=pick)
             ref = {"losses": [float(metrics[k]) for k in ("loss", "ar_loss", "clip_loss")],
-                   "state": {k: v.detach().cpu() for k, v in step.model.state_dict().items()}}
+                   "state": {k: v.detach().cpu() for k, v in step.model.state_dict().items()},
+                   "grads": grads}
             single_moments = _moment_bytes(step.optimizer)
             del step
             ref_shard_map = _shard_map_reference(config, rows, pick)
@@ -3352,18 +3639,20 @@ def _md_rank_m8b(rank: int, world: int, port: int, root: str) -> None:
         rows, pick = _md_rows(batch, 0, config.batch_size)
         out["pp"] = {}
 
-        def pp_step(cfg, m):
+        def pp_step(cfg, m, capture=False):
             step, _, tok = _md_step(cfg, None, None, "pjit")
             model = pp.shard_coati_params_pp(mesh, step.model)
+            optimizer = pp.make_pp_optimizer(cfg, mesh, model)
+            grads = _capture_grads(optimizer, model.named_parameters()) if capture else None
             fn = pp.make_pp_coati_train_step(
-                mesh, step.model_cfg, model, pp.make_pp_optimizer(cfg, mesh, model),
+                mesh, step.model_cfg, model, optimizer,
                 stop_token=tok.stop_token, unk_token=tok.unk_token,
                 p_clip_emb_smi=cfg.p_clip_emb_smi, token_entropy_unit=step.token_entropy_unit,
                 n_microbatches=m)
-            return fn, model
+            return fn, model, grads
 
         for m in (2, 4):
-            fn, model = pp_step(config, m)
+            fn, model, captured = pp_step(config, m, capture=True)
             _zero_counts()
             with record_shapes() as (full, _):
                 metrics = fn(None, rows, pick_point=pick)
@@ -3372,12 +3661,14 @@ def _md_rank_m8b(rank: int, world: int, port: int, root: str) -> None:
             counts = [None] * world
             dist.all_gather_object(counts, _counts())
             state = pp.gather_pp_state(mesh, model)
+            grads = pp.gather_stages(mesh, captured)
             out["pp"][m] = {"losses": [float(metrics[k]) for k in ("loss", "ar_loss", "clip_loss")],
                             "launches_per_rank": counts,
-                            "state": state if rank == 0 else None}
-            del fn, model, state
+                            "state": state if rank == 0 else None,
+                            "grads": grads if rank == 0 else None}
+            del fn, model, state, grads, captured
             torch.cuda.empty_cache()
-        fn, _ = pp_step(_md_config("bfloat16"), 2)
+        fn, _, _ = pp_step(_md_config("bfloat16"), 2)
         with record_shapes() as (full, _):  # an untimed step, the shapes of the timed ones
             fn(None, rows, pick_point=pick)
             torch.cuda.synchronize()
@@ -3498,7 +3789,9 @@ def _pipeline_sequence_expert(config, batch, ref):
                   f"rank: {counts}")
         pp_summary[m] = {"launches_per_rank": run["launches_per_rank"],
                          **_md_compare(f"multi_device PP {m} microbatches", run["losses"],
-                                       run["state"], ref)}
+                                       run["state"], ref),
+                         "grads": _md_grad_compare(f"multi_device PP {m} microbatches",
+                                                   run["grads"], ref["grads"])}
     emit({"phase": "multi_device", "part": "pipeline", "pipe": 2, "runs": pp_summary,
           "bf16_step_s": out["pp_bf16_step_s"],
           "bf16_step_median_s": statistics.median(out["pp_bf16_step_s"])})
@@ -3813,7 +4106,11 @@ def main() -> int:
     lap("serving")
     paths["metadynamics"] = phase_metadynamics(prod, tok)
     lap("metadynamics")
-    del model, prod
+    del model
+    torch.cuda.empty_cache()
+    paths["examples"] = phase_examples(prod, tok)
+    lap("examples")
+    del prod
     torch.cuda.empty_cache()
     paths["multi_device"] = phase_multi_device()
     lap("multi_device")

@@ -27,7 +27,11 @@ import torch
 from torch import nn
 
 from coati_tpu_torch.models import coati
-from coati_tpu_torch.models.sampler import auto_stage_widths, generate_tokens
+from coati_tpu_torch.models.sampler import (
+    auto_stage_widths,
+    generate_prefix_batch,
+    generate_tokens,
+)
 from coati_tpu_torch.ops.layers import cast_floats
 from coati_tpu_torch.tokenizers.trie_tokenizer import TrieTokenizer
 
@@ -264,20 +268,11 @@ class COATI(InjectedDecoder):
         de_fim: bool = True,
     ) -> List[str]:
         """Text-prefix-conditioned generation; prefixes may differ in length."""
-        token_rows = [tokenizer.tokenize_text(p, pad=False) for p in prefixes]
-        total_len = self.config.n_seq
-        tokens0 = np.zeros((len(token_rows), total_len), np.int64)
-        for i, row in enumerate(token_rows):
-            tokens0[i, : len(row)] = row
-        lens = np.asarray([len(row) for row in token_rows], np.int64)
-        out = generate_tokens(
+        out = generate_prefix_batch(
             self._compute.xformer,
             self.config.xformer_config,
             self._generator,
-            torch.as_tensor(tokens0, device=self.device),
-            torch.as_tensor(lens, device=self.device),
-            prefill_len=max(1, int(lens.min())),
-            total_len=total_len,
+            [tokenizer.tokenize_text(p, pad=False) for p in prefixes],
             stop_token=tokenizer.stop_token,
             pad_token=tokenizer.pad_token,
             k=k,

@@ -141,13 +141,19 @@ def apply_swiglu_resnet(p: SwiGLUResNet, x: torch.Tensor) -> torch.Tensor:
     return _swiglu_stack(p.net[0], p.net[2], p.net[4], x) + x
 
 
+def apply_swiglu_mlp(p: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
+    """The same stack without the residual (enc_to_coati="swiglu_mlp":
+    LayerNorm, Linear, SwiGLU, Linear)."""
+    return _swiglu_stack(p[0], p[1], p[3], x)
+
+
 def smiles_to_coati(params: Coati2Model, cfg: Coati2Config, h: torch.Tensor) -> torch.Tensor:
     """The [STOP] hidden state (B, n_hidden_xformer) -> (B, embed_dim)."""
     p = params.smiles_to_coati
     if cfg.enc_to_coati == "linear":
         return linear(layer_norm(h, p[0].weight, p[0].bias), p[1].weight, p[1].bias)
     if cfg.enc_to_coati == "swiglu_mlp":
-        return _swiglu_stack(p[0], p[1], p[3], h)
+        return apply_swiglu_mlp(p, h)
     return apply_swiglu_resnet(p, h)
 
 
@@ -186,7 +192,7 @@ def direct_clr_loss(
     return clip_loss(z1 * inv_temp, z2, bad_rows)
 
 
-def training_forward(
+def coati2_training_forward(
     params: Coati2Model,
     cfg: Coati2Config,
     tokens: torch.Tensor,

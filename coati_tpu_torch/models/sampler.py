@@ -148,3 +148,34 @@ def generate_with_injection_batch(
         pad_token=pad_token, k=k, inv_temp=inv_temp,
         inj_payload=inj_payload, inject_token=unk_token,
     )
+
+
+def generate_prefix_batch(
+    params: SmilesTransformer,
+    cfg: TransformerConfig,
+    generator: Optional[torch.Generator],
+    prefixes: Sequence[Sequence[int]],
+    *,
+    stop_token: int,
+    pad_token: int = 0,
+    k: int = 100,
+    inv_temp: float = 2.0,
+    total_len: Optional[int] = None,
+) -> torch.Tensor:
+    """Generation behind token prefixes of different lengths (the
+    reference's generate_topk_batch): the prefill covers the shortest
+    prefix, and each longer row keeps its own prefix tokens through the
+    decode steps. Returns (B, total_len) int64 tokens on the device of
+    `params`."""
+    device = next(params.parameters()).device
+    total_len = total_len or cfg.n_seq
+    lens = [len(pf) for pf in prefixes]
+    tokens = torch.zeros((len(prefixes), total_len), dtype=torch.long)
+    for i, pf in enumerate(prefixes):
+        tokens[i, : len(pf)] = torch.as_tensor(list(pf), dtype=torch.long)
+    return generate_tokens(
+        params, cfg, generator, tokens.to(device),
+        torch.as_tensor(lens, dtype=torch.long, device=device),
+        prefill_len=max(1, min(lens)), total_len=total_len, stop_token=stop_token,
+        pad_token=pad_token, k=k, inv_temp=inv_temp,
+    )

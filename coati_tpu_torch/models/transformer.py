@@ -174,6 +174,11 @@ class SmilesTransformer(nn.Module):
         return self.emb.tok_emb.weight, None
 
 
+def count_params(params: nn.Module) -> int:
+    """The number of scalars in a module's parameters."""
+    return sum(p.numel() for p in params.parameters())
+
+
 def _tp_group(params: SmilesTransformer):
     """The model axis's group when tensor parallelism sharded `params`."""
     return getattr(params, "tp", None)

@@ -27,6 +27,33 @@ def top_k_candidates(logits: torch.Tensor, k: int):
     return vals[..., :k], idxs[..., :k]
 
 
+def top_k_filter(logits: torch.Tensor, k: int, approx: bool = False) -> torch.Tensor:
+    """Logits below each row's k-th largest value set to -inf. The mask is
+    by value, as coati_tpu's: a logit tied with the k-th value survives
+    whatever its index. `approx` has no approximate form on the card (the
+    TPU's lax.approx_max_k); the threshold is always exact."""
+    del approx
+    kth = top_k_candidates(logits, k)[0][..., -1:]
+    return logits.masked_fill(logits < kth, float("-inf"))
+
+
+def top_p_filter(
+    logits: torch.Tensor, top_p: float, k: int, approx: bool = False
+) -> torch.Tensor:
+    """Nucleus filter over logits already masked to their top k: logits
+    outside the smallest set of the k candidates whose probability reaches
+    `top_p` set to -inf (the most probable always survives). The mass is
+    taken over the k candidate values, which equals the softmax of the
+    whole masked row. `approx` is ignored: the candidates are exact."""
+    del approx
+    vals = top_k_candidates(logits, k)[0]
+    probs = torch.softmax(vals, dim=-1)
+    # a candidate stays when the mass before it is still < top_p
+    keep = (torch.cumsum(probs, dim=-1) - probs) < top_p
+    thresh = vals.masked_fill(~keep, float("inf")).amin(dim=-1, keepdim=True)
+    return logits.masked_fill(logits < thresh, float("-inf"))
+
+
 def sample_top_k(
     generator: Optional[torch.Generator],
     logits: torch.Tensor,

@@ -152,3 +152,23 @@ class VocabMatcher:
         if span_start < n:
             out.append(text[span_start:])
         return out
+
+
+class Trie(VocabMatcher):
+    """The reference's Trie class (coati/models/encoding/tokenizers/trie.py:
+    add, split, cut_text), so code written against it runs unchanged; the
+    matching is VocabMatcher's leftmost-longest scan (`split`)."""
+
+    def cut_text(self, text: str, offsets: List[int]) -> List[str]:
+        """`text` cut at the given offsets, zero-width pieces dropped."""
+        offsets = list(offsets) + [len(text)]
+        tokens: List[str] = []
+        start = 0
+        for end in offsets:
+            if start > end:
+                raise RuntimeError("cut_text offsets must be non-decreasing")
+            if start == end:
+                continue
+            tokens.append(text[start:end])
+            start = end
+        return tokens

@@ -202,7 +202,7 @@ class Coati2TrainStep:
     def losses(self, batch: Dict[str, torch.Tensor]):
         """(loss, ar_loss, clr_loss) of a batch of device tensors; float32
         scalars attached to the graph."""
-        h1, h2, logits, bad_rows = C2.training_forward(
+        h1, h2, logits, bad_rows = C2.coati2_training_forward(
             self.model, self.model_cfg, batch["tokens"], batch["raw_tokens"],
             batch["rand_tokens"], self.stop_token, self.unk_token, self.pad_token,
         )
@@ -228,6 +228,11 @@ class Coati2TrainStep:
             with torch.no_grad():
                 loss, ar, cl = self.losses(batch)
         return self.parallel.metrics(loss, ar, cl)
+
+
+def make_coati2_train_step(model, model_cfg, optimizer, **kwargs) -> Coati2TrainStep:
+    """The step of train_coati2; see Coati2TrainStep for the keywords."""
+    return Coati2TrainStep(model, model_cfg, optimizer, **kwargs)
 
 
 def batch_to_device(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
@@ -304,8 +309,10 @@ def train_coati2(
         do_clr=config.do_clr, clr_inv_temp=config.clr_inv_temp,
         parallel=ParallelStep(placement, config.parallel_mode),
     )
-    step_train = Coati2TrainStep(model, model_cfg, optimizer, is_training=True, **step_kwargs)
-    step_eval = Coati2TrainStep(model, model_cfg, optimizer, is_training=False, **step_kwargs)
+    step_train = make_coati2_train_step(model, model_cfg, optimizer, is_training=True,
+                                        **step_kwargs)
+    step_eval = make_coati2_train_step(model, model_cfg, optimizer, is_training=False,
+                                       **step_kwargs)
 
     def xform_routine(batch):
         return coati2_ar_xform(

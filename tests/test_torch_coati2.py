@@ -469,3 +469,66 @@ def test_train_coati2_steps_track_coati_tpu_s(tmp_path, steps):
     jm = j2.COATI2(jm.params, jm.config.replace(precision="highest"))
     tokens = _token_rows(tok, SMILES[:4])
     hp.close(m.encode_tokens(tokens, tok), jm.encode_tokens(tokens, jtok))
+
+
+def test_generate_prefix_batch_forces_each_row_s_own_prefix_like_coati_tpu():
+    """Prefixes of 3, 5 and 8 tokens in one batch: the prefill covers 3,
+    and the longer rows are forced through their own tokens while the
+    shorter ones already sample. Greedy (k 1), token for token."""
+    from coati_tpu.models.sampler import generate_prefix_batch as jax_generate_prefix_batch
+
+    from coati_tpu_torch.models.sampler import generate_prefix_batch
+
+    jparams, jcfg, model, tcfg = _pair(seed=8, width=64, n_seq=DECODE_SEQ)
+    tok = _tok(DECODE_SEQ)
+    texts = ["[SET][chembl_mols][SMILES]", "[PROPS][PercentQED][NUM8][ENDPROPS][SMILES]",
+             PROPS + "C", "[SET][chembl_mols][SMILES]", PROPS + "C"]
+    prefixes = [tok.tokenize_text(s, pad=False) for s in texts]
+    assert [len(p) for p in prefixes] == [3, 5, 8, 3, 8]
+    kw = dict(stop_token=tok.stop_token, pad_token=tok.pad_token, k=1, inv_temp=2.0)
+    for total_len in (None, 20):
+        mine = generate_prefix_batch(model.xformer, tcfg.xformer_config, None, prefixes,
+                                     total_len=total_len, **kw)
+        ref = np.asarray(jax_generate_prefix_batch(
+            jparams.xformer, jcfg.xformer_config, jax.random.PRNGKey(0), prefixes,
+            total_len=total_len, **kw))
+        assert mine.dtype == torch.long and mine.shape == (5, total_len or DECODE_SEQ)
+        np.testing.assert_array_equal(mine.numpy(), ref)
+        for row, prefix in zip(mine.tolist(), prefixes):
+            assert row[: len(prefix)] == prefix
+
+
+def test_make_coati2_train_step_matches_coati_tpu_s_step():
+    """One step of each package's COATI2 step builder on a world of one,
+    from the same weights and batch, with plain SGD on both sides (Adam's
+    first step divides each gradient by its own magnitude, which amplifies
+    last-bit differences of gradients near zero; the recipe's optimizer is
+    held over whole runs in test_train_coati2_steps_track_coati_tpu_s):
+    the three losses and every parameter after the update within atol
+    3e-5, rtol 1e-4."""
+    import optax
+
+    lr = 1e-2
+    jparams, jcfg, model, tcfg = _pair(seed=9, width=64)
+    tok = _tok()
+    batch = _train_batch(tok, SMILES, 13)
+    kw = dict(stop_token=tok.stop_token, unk_token=tok.unk_token, pad_token=tok.pad_token,
+              token_entropy_unit=float(np.log2(tok.n_token)))
+    before = coati2_state_from_coati_tpu(params_to_state(jparams), tcfg.enc_to_coati)
+    optimizer = optax.sgd(lr)
+    jstep = jt2.make_coati2_train_step(make_mesh(1), jcfg, optimizer, **kw)  # donates jparams
+    jnew, _, jmetrics = jstep(jparams, optimizer.init(jparams), jax.random.PRNGKey(0),
+                              {k: jnp.asarray(v) for k, v in batch.items()})
+    step = tt2.make_coati2_train_step(model, tcfg, torch.optim.SGD(model.parameters(), lr=lr),
+                                      **kw)
+    assert isinstance(step, tt2.Coati2TrainStep)
+    metrics = step(tt2.batch_to_device(batch, torch.device("cpu")))
+    for key in ("loss", "ar_loss", "clip_loss"):
+        hp.close(metrics[key], jmetrics[key])
+    want = coati2_state_from_coati_tpu(params_to_state(jnew), tcfg.enc_to_coati)
+    moved = 0.0
+    for name, p in model.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), want[name].numpy(), atol=hp.ATOL,
+                                   rtol=hp.RTOL, err_msg=name)
+        moved = max(moved, float((want[name] - before[name]).abs().max()))
+    assert moved > 10 * hp.ATOL  # the step moved the weights beyond the tolerance

@@ -736,3 +736,32 @@ def test_sample_top_p_matches_jax_nucleus():
     counts = _counts(draws, 10)
     assert set(np.nonzero(counts)[0]) == set(np.nonzero(probs)[0])
     _assert_4sigma(counts, probs)
+
+
+@pytest.mark.parametrize("k", [1, 4, 9, 40])
+def test_top_k_filter_equals_coati_tpu_s_ties_included(k):
+    """The mask is by value in both packages: small integer logits put ties
+    inside the top k and across its k-th place, and every logit tied with
+    the k-th value survives; approx=True takes the exact threshold."""
+    logits = np.random.default_rng(54).integers(0, 6, size=(32, 40)).astype(np.float32)
+    ref = np.asarray(jsamp.top_k_filter(jnp.asarray(logits), k))
+    for approx in (False, True):
+        np.testing.assert_array_equal(tsamp.top_k_filter(_t(logits), k, approx=approx).numpy(),
+                                      ref)
+    kth = np.sort(logits, axis=-1)[:, -k][:, None]
+    assert (np.isfinite(ref) == (logits >= kth)).all()
+
+
+@pytest.mark.parametrize("top_p", [0.05, 0.5, 0.9, 1.0])
+def test_top_p_filter_equals_coati_tpu_s_ties_included(top_p):
+    """Over top-k-masked rows of tied and of continuous logits, as
+    sample_top_k's callers give it."""
+    rng = np.random.default_rng(55)
+    tied = rng.integers(0, 6, size=(16, 40)).astype(np.float32)
+    rows = np.concatenate([tied, _normal(56, 16, 40) * 2.0])
+    for k in (1, 5, 12):
+        masked = np.asarray(jsamp.top_k_filter(jnp.asarray(rows), k))
+        ref = np.asarray(jsamp.top_p_filter(jnp.asarray(masked), top_p, k))
+        mine = tsamp.top_p_filter(_t(masked), top_p, k).numpy()
+        np.testing.assert_array_equal(mine, ref)
+        assert np.isfinite(mine).any(axis=-1).all()  # the most probable survives
