@@ -25,7 +25,8 @@ number is taken.
     hidden behind a spin on the card), beside its bound and, where one
     PyTorch call computes the same function, that call (a yardstick only:
     the port never calls it); K2, K5f and K3 also beside the floor of their
-    exponentials. Then routing:
+    exponentials; the attention kernels and K1 also untimed at Dh 24, which
+    they run zero-padded to 32. Then routing:
     forward + backward of the trainer's attention through K5f + K5b and
     through K2 + its replayed plain backward, side by side.
  3. chem (host only): the port's chemistry core. The native C libraries
@@ -187,7 +188,25 @@ number is taken.
     temperature 1.75, each number beside docs/eval_generation_quality.json's
     and within its band (round trips 0.04, fraction valid and unique 0.03).
     Seconds of each example; K2 and K1 held at every shape and position.
-15. multi_device: multi-device training and sharded inference on the one
+15. decode_quality: the JAX package's decode-quality protocol
+    (scripts/torch_eval_trained_decode.py, the port's counterpart of
+    scripts/eval_trained_decode.py) on the trained document. Four
+    configurations built from it: fp32; bf16 over a bf16 KV cache; bf16
+    over an int8 cache with float32 scales; the default (bf16, which takes
+    the int8 cache). Each decodes the protocol's 2,048 train and 2,048
+    holdout molecules from their float32 embeddings (k 2, inverse
+    temperature 20) and 1,024 draws (k 100, inverse temperature 2) with the
+    same seeds: round trips, mean length, stop rate, validity proxy, the
+    token histogram's total variation against fp32's and the share of
+    round-trip tokens equal to fp32's, one line a configuration. Every
+    configuration but fp32 must keep its round trips within 0.02 of fp32's
+    on each split and the TV within 0.05 (the JAX script's rule). Then the
+    generation-quality protocol on the default configuration: fraction
+    valid and unique within 0.03 of phase examples' float32 numbers, each
+    number beside docs/eval_generation_quality.json's. The phase's seconds;
+    K1's launches by the form of its cache (the bf16 cache must launch);
+    K2 and K1 held at every shape and position.
+16. multi_device: multi-device training and sharded inference on the one
     card. (a) World 1 over NCCL: one float32 step of the grande recipe at
     full width (batch 160 of the fixture through the recipe's transform,
     seeded clip-token choices) as train_autoencoder's step over a world-1
@@ -223,7 +242,7 @@ number is taken.
     every token equal to the single-device engine's, seconds of both; then a
     server in continuous mode over the two devices answers /generate as the
     single-device one.
-16. report: the card's name and power limit, one `kernels` JSON line, and
+17. report: the card's name and power limit, one `kernels` JSON line, and
     as the last line {"ok": true, "device": {...}}.
 
 Every number printed is measured in this run, on this card, except the
@@ -824,12 +843,14 @@ def hold_path_shapes(phase, shapes):
 
 
 @contextlib.contextmanager
-def record_shapes():
+def record_shapes(decode_calls=None):
     """Notes the shapes at which the transformer calls each attention
     kernel's wrapper, and calls it on: (kernel, B, T, H, Dh, dtype) of
     every full-sequence call (K5f's also stand for K5b's, which runs at its
     forward's shapes), and (B, T, H, Dh, q dtype, cache) -> positions of
-    every decode step. The wrappers still count their launches."""
+    every decode step; with `decode_calls` (a Counter), also K1's calls by
+    the form of the cache ("float32", "bfloat16", "int8/float32", ...).
+    The wrappers still count their launches."""
     from coati_tpu_torch.models import transformer
 
     full, decode = set(), collections.defaultdict(set)
@@ -850,6 +871,8 @@ def record_shapes():
             k, pos = cache_and_pos[0], cache_and_pos[-1]
             kv = f"int8/{dtype_name(cache_and_pos[1])}" if quant else dtype_name(k)
             decode[(q.shape[0], k.shape[1], *q.shape[1:], dtype_name(q), kv)].add(int(pos))
+            if decode_calls is not None:
+                decode_calls[kv] += 1
             return fn(q, *cache_and_pos)
         return call
 
@@ -965,6 +988,18 @@ def phase_kernels():
         cases.append(_decode_case(3, 40, 6, 16, pos, f32, f32, gen))  # H not a power of two
         cases.append(_decode_case(3, 40, 6, 16, pos, bf16, "int8/float32", gen))
         cases.append(_decode_case(2, 40, 64, 16, pos, f32, "int8/float32", gen))  # H 64
+    # Dh 24 (the conditioning protocol's COATI2, 96 wide over 4 heads): no
+    # body takes it, so every attention kernel runs it zero-padded to 32
+    for dtype in (f32, bf16):
+        for t in (5, 48):
+            cases.append(_attention_case("flash_causal_attention", 64, t, 4, 24, dtype, gen,
+                                         timed=False))
+            cases.append(_attention_case("packed_causal_attention", 64, t, 4, 24, dtype, gen,
+                                         timed=False))
+            cases.append(_attention_bwd_case(64, t, 4, 24, dtype, gen, timed=False))
+    for pos in (0, 5, 47):
+        for q_dtype, kv in ((f32, f32), (bf16, bf16), (bf16, "int8/float32")):
+            cases.append(_decode_case(64, 48, 4, 24, pos, q_dtype, kv, gen, timed=False))
     for case in cases:
         emit({"phase": "kernel", **case})
     bad = [c for c in cases if not c["ok"]]
@@ -3142,6 +3177,7 @@ def phase_examples(prod, tok):
             seconds["generation_quality"] = time.perf_counter() - t0
             del model
             counts = _counts()  # and ends here
+    MEASURED["generation_quality_fp32"] = quality  # decode_quality's reference
     line = _quality_line(quality, setting)
     line["seconds"] = seconds["generation_quality"]
     emit(line)
@@ -3197,6 +3233,63 @@ def phase_examples(prod, tok):
     missed = {k: v for k, v in line["numbers"].items() if not v.get("ok", True)}
     check(not missed, f"examples: the generation-quality protocol misses the record's bands: "
           f"{missed}")
+    return counts
+
+
+# ---------------------------------------------------------- decode_quality
+
+
+def phase_decode_quality():
+    """The JAX package's decode-quality protocol on the card
+    (scripts/torch_eval_trained_decode.py, after scripts/eval_trained_decode.py)
+    on the trained document: (1) its four configurations (fp32; bf16 over a
+    bf16 cache; bf16 over an int8 cache; the default, bf16 with the int8
+    cache) decode the same 2,048 train and 2,048 holdout round trips and
+    1,024 draws (k 100, inverse temperature 2) from the same float32
+    embeddings with the same seeds; every configuration but fp32 must hold
+    the JAX script's rule: round trip within 0.02 of fp32's on each split,
+    token-histogram TV <= 0.05. (2) The generation-quality protocol on the
+    default configuration: fraction valid and unique within 0.03 of the
+    float32 protocol that phase examples ran. K2 and K1 held at every shape
+    and position the phase ran, K1 over each form of its cache. Returns the
+    launch counts of the path."""
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import torch_eval_trained_decode as ted
+
+    fp32 = MEASURED["generation_quality_fp32"]
+    by_cache = collections.Counter()
+    seconds = {}
+    with record_shapes(by_cache) as (full, decode):
+        _zero_counts()  # the path starts here
+        t0 = time.perf_counter()
+        part1 = ted.evaluate(DOC, CORPUS)
+        torch.cuda.synchronize()
+        seconds["configurations"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        production = ted.production_quality(DOC, CORPUS)
+        torch.cuda.synchronize()
+        seconds["generation_quality"] = time.perf_counter() - t0
+        counts = _counts()  # and ends here
+    part2 = ted.quality_vs_fp32(production, fp32, json.loads(QUALITY_RECORD.read_text()))
+    for name, r in part1["results"].items():
+        emit({"phase": "decode_quality", "config": name, **r,
+              "verdict": part1["verdict"].get(name, "reference")})
+    emit({"phase": "decode_quality", "part": "verdict", "rule": part1["rule"],
+          "rt_rows": part1["rt_rows"], "sample_batch": part1["sample_batch"],
+          "top_k": part1["top_k"], "ok": part1["ok"]})
+    emit({"phase": "decode_quality", "part": "generation_quality",
+          "setting": dict(ted.CONFIGS)["default"], **ted.QUALITY, **part2})
+    emit({"phase": "decode_quality", "part": "seconds", **seconds,
+          "seconds": sum(seconds.values()), "launches": counts,
+          "decode_attention_by_cache": dict(by_cache)})
+    check(part1["ok"], f"decode_quality: a configuration misses the JAX rule: {part1['verdict']}")
+    check(part2["ok"], f"decode_quality: the production setting's fraction valid or unique is "
+          f"more than {ted.QUALITY_BAND} from float32's: {part2['numbers']}")
+    check(counts["flash_causal_attention"] > 0 and counts["decode_attention"] > 0
+          and counts["decode_attention_quant"] > 0 and by_cache["bfloat16"] > 0,
+          f"decode_quality: launches {counts}, K1 by cache {dict(by_cache)}")
+    hold_path_shapes("decode_quality", full)
+    hold_decode_positions("decode_quality", decode)
     return counts
 
 
@@ -4111,6 +4204,9 @@ def main() -> int:
     paths["examples"] = phase_examples(prod, tok)
     lap("examples")
     del prod
+    torch.cuda.empty_cache()
+    paths["decode_quality"] = phase_decode_quality()
+    lap("decode_quality")
     torch.cuda.empty_cache()
     paths["multi_device"] = phase_multi_device()
     lap("multi_device")

@@ -90,10 +90,11 @@ def _same_mol(a: str, b: str) -> bool:
         return a == b
 
 
-def greedy_roundtrip(model, tokenizer, smiles, chunk: int = ROUND_TRIP_CHUNK):
-    """(share, rows): the share of molecules whose embedding of their
-    canonical writing decodes (k 2, inverse temperature 20) to the same
-    molecule, and how many molecules were tried."""
+def roundtrip_rows(tokenizer, smiles):
+    """(kept, tokens): the molecules of `smiles` the round trip can take
+    (the validity proxy passes, they canonicalize, their canonical writing
+    fits n_seq) and the (rows, n_seq) '[SMILES]...[STOP]' tokens of that
+    canonical writing, the key the decoder learned."""
     keep, enc = [], []
     for s in smiles:
         if not _valid_proxy(s, tokenizer):
@@ -105,17 +106,29 @@ def greedy_roundtrip(model, tokenizer, smiles, chunk: int = ROUND_TRIP_CHUNK):
         if len(tokenizer.tokenize_text("[SMILES]" + c + "[STOP]", pad=False)) <= tokenizer.n_seq:
             keep.append(s)
             enc.append(c)
-    if not keep:
-        return 0.0, 0
     tokens = np.asarray(
         [tokenizer.tokenize_text("[SMILES]" + c + "[STOP]", pad=True) for c in enc], np.int64)
+    return keep, tokens.reshape(len(enc), tokenizer.n_seq)
+
+
+def roundtrip_share(decoded, kept) -> float:
+    """The share of decodes that are the same molecule as their input."""
+    return sum(1 for a, b in zip(decoded, kept) if _same_mol(a, b)) / len(kept)
+
+
+def greedy_roundtrip(model, tokenizer, smiles, chunk: int = ROUND_TRIP_CHUNK):
+    """(share, rows): the share of molecules whose embedding of their
+    canonical writing decodes (k 2, inverse temperature 20) to the same
+    molecule, and how many molecules were tried."""
+    keep, tokens = roundtrip_rows(tokenizer, smiles)
+    if not keep:
+        return 0.0, 0
     decoded = []
     for lo in range(0, len(tokens), chunk):
         h = model.encode_tokens(tokens[lo : lo + chunk], tokenizer)
         decoded.extend(model.hclip_to_2d_batch(h, tokenizer, inv_temp=ROUND_TRIP_INV_TEMP,
                                                k=ROUND_TRIP_K))
-    hits = sum(1 for a, b in zip(decoded, keep) if _same_mol(a, b))
-    return hits / len(keep), len(keep)
+    return roundtrip_share(decoded, keep), len(keep)
 
 
 def bulk_protocol(model, tokenizer, batches: int, batch_size: int, k: int, inv_temp: float,

@@ -166,8 +166,9 @@ def generate_prefix_batch(
     reference's generate_topk_batch): the prefill covers the shortest
     prefix, and each longer row keeps its own prefix tokens through the
     decode steps. Returns (B, total_len) int64 tokens on the device of
-    `params`."""
-    device = next(params.parameters()).device
+    `params` (a compute-dtype copy from cast_floats registers no
+    parameters, so the device is its lm_head's)."""
+    device = params.lm_head.weight.device
     total_len = total_len or cfg.n_seq
     lens = [len(pf) for pf in prefixes]
     tokens = torch.zeros((len(prefixes), total_len), dtype=torch.long)

@@ -23,7 +23,10 @@ launches in `.launches`.
 The cache slice of one layer, `data[l, 0]` of the (L, 2, B, T, H, Dh)
 cache, is a contiguous (B, T, H, Dh) view and is read in place; q and
 the cache slices must start on a 16-byte boundary. `pos` is a host int
-passed by value, so a launch needs no device sync.
+passed by value, so a launch needs no device sync. The kernel has bodies
+for Dh 16 and 32; a head below 32 of another width (24) is read from
+copies zero-padded to the next, at the cost of a copy of the cache a
+launch.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ import torch
 
 from coati_tpu_torch.ops import attention as plain
 from coati_tpu_torch.ops.kernels import build
+from coati_tpu_torch.ops.kernels.flash_attention import pad_heads, padded_width
 
 HEAD_DIMS = (16, 32)  # a head's vector is whole 16-byte loads, unrolled in registers
 DTYPES = (torch.float32, torch.bfloat16)
@@ -62,10 +66,13 @@ def _check_common(q1: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos) -> No
         raise ValueError("decode attention: q1 and the caches must lie on one CUDA device")
     if q1.dtype not in DTYPES:
         raise TypeError(f"decode attention takes a float32 or bfloat16 query, got {q1.dtype}")
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"decode attention: head dim {dh} not in {HEAD_DIMS}")
-    if (h * dh) % 32 or h * dh > 1024:
-        raise ValueError(f"decode attention: H*Dh = {h * dh} must be a multiple of 32, at most 1024")
+    width = padded_width(q1, k, v, head_dims=HEAD_DIMS) or dh  # the head dim it runs at
+    if width not in HEAD_DIMS:
+        raise ValueError(f"decode attention: head dim {dh} above {HEAD_DIMS[-1]} or not in "
+                         f"{HEAD_DIMS}")
+    if (h * width) % 32 or h * width > 1024:
+        raise ValueError(f"decode attention: H*Dh = {h * width} must be a multiple of 32, "
+                         "at most 1024")
     if not all(x.is_contiguous() for x in (q1, k, v)):
         raise ValueError("decode attention: q1 and the cache slices must be contiguous")
     if not isinstance(pos, int) or not 0 <= pos < t:
@@ -85,19 +92,28 @@ def check_aligned(*tensors: torch.Tensor) -> None:
             )
 
 
-def _launch(q1, k, v, ks: Optional[torch.Tensor], vs: Optional[torch.Tensor], pos: int, scale_code: int):
-    b, t, h, dh = k.shape
+def _launch(q1, k, v, ks: Optional[torch.Tensor], vs: Optional[torch.Tensor], pos: int,
+            scale_code: int):
+    """The kernel on checked tensors; a head dim without a body runs on
+    copies zero-padded to the next (flash_attention.padded_width: for an
+    int8 cache too, whose per-(token, head) scales the zeros leave as they
+    are), the scale kept at the unpadded Dh's."""
+    dh = q1.shape[-1]
+    width = padded_width(q1, k, v, head_dims=HEAD_DIMS)
+    if width:
+        q1, k, v = pad_heads(width, q1, k, v)
+    b, t, h, w = k.shape
     out = torch.empty_like(q1)
     err = _library()(
         q1.data_ptr(), k.data_ptr(), v.data_ptr(),
         ks.data_ptr() if ks is not None else None,
         vs.data_ptr() if vs is not None else None,
-        out.data_ptr(), b, t, h, dh, pos,
+        out.data_ptr(), b, t, h, w, pos,
         build.DTYPE_CODES[q1.dtype], build.DTYPE_CODES[k.dtype], scale_code,
         1.0 / math.sqrt(dh), build.stream_handle(q1.device),
     )
     build.check(err, "decode_attention kernel")
-    return out
+    return out[..., :dh].contiguous() if width else out
 
 
 def decode_attention(q1: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, pos: int) -> torch.Tensor:

@@ -19,7 +19,10 @@ there is no fallback. `flash_causal_attention.launches` counts launches.
 q/k/v may be strided views (the slices of the fused qkv projection): the
 kernel takes their batch and token strides and reads them in place; heads
 must be packed (head stride Dh, element stride 1). The output is a new
-contiguous (B, T, H, Dh) tensor in the input dtype.
+contiguous (B, T, H, Dh) tensor in the input dtype. The bodies take Dh 16,
+32 and 64; a head of another Dh below 64 (24, say) runs through the next
+wider body on copies zero-padded to it (`padded_width`), as do the other
+attention kernels' heads.
 
 `flash_causal_attention` goes through `FlashCausalAttention`, a
 torch.autograd.Function whose forward is K2. K2 has no backward kernel: the
@@ -109,23 +112,46 @@ def check_aligned(
             )
 
 
+def padded_width(q: torch.Tensor, *others: torch.Tensor, head_dims=HEAD_DIMS):
+    """The head dim at which a kernel runs heads of q's Dh when it has no
+    body for Dh: the least of `head_dims` above it (24 runs as 32). None
+    when it has one, when the tensors' head dims differ or when none is
+    above (the checks then take or refuse them as they are). The padding
+    is zeros, which add exact zeros to every product of q with k and of the
+    probabilities with v; with the scale kept at 1 / sqrt(Dh), the first
+    Dh outputs are those of an attention at Dh."""
+    dh = q.shape[-1]
+    if dh in head_dims or any(x.shape[-1] != dh for x in others):
+        return None
+    return next((w for w in head_dims if w > dh), None)
+
+
+def pad_heads(width: int, *xs: torch.Tensor):
+    """Each tensor zero-padded to `width` in its last axis (contiguous)."""
+    return [torch.nn.functional.pad(x, (0, width - x.shape[-1])) for x in xs]
+
+
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """K2 on CUDA tensors, its plain version on CPU tensors."""
     if q.device.type == "cpu":
         return causal_attention(q, k, v, softmax_dtype=torch.float32)
+    dh = q.shape[-1]
+    width = padded_width(q, k, v)
+    if width:
+        q, k, v = pad_heads(width, q, k, v)
     check_qkv(q, k, v)
     check_aligned(q, k, v)
-    b, t, h, dh = q.shape
-    out = torch.empty((b, t, h, dh), dtype=q.dtype, device=q.device)
+    b, t, h, w = q.shape
+    out = torch.empty((b, t, h, w), dtype=q.dtype, device=q.device)
     err = _library()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, t, h, dh, build.DTYPE_CODES[q.dtype],
+        b, t, h, w, build.DTYPE_CODES[q.dtype],
         q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
         1.0 / math.sqrt(dh), build.stream_handle(q.device),
     )
     build.check(err, "flash_causal_attention kernel")
     flash_causal_attention.launches += 1
-    return out
+    return out[..., :dh].contiguous() if width else out
 
 
 class FlashCausalAttention(torch.autograd.Function):

@@ -40,7 +40,12 @@ import torch
 
 from coati_tpu_torch.ops.attention import causal_attention, causal_attention_backward
 from coati_tpu_torch.ops.kernels import build
-from coati_tpu_torch.ops.kernels.flash_attention import check_aligned, check_qkv
+from coati_tpu_torch.ops.kernels.flash_attention import (
+    check_aligned,
+    check_qkv,
+    pad_heads,
+    padded_width,
+)
 
 MAX_T = 128
 MAX_SHARED_BYTES = 232448  # what one block may ask for on an H100
@@ -157,6 +162,10 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """K5f on CUDA tensors, its plain version on CPU tensors."""
     if q.device.type == "cpu":
         return causal_attention(q, k, v, softmax_dtype=torch.float32)
+    unpadded = q.shape[-1]
+    width = padded_width(q, k, v)
+    if width:
+        q, k, v = pad_heads(width, q, k, v)
     check_qkv(q, k, v, "packed_causal_attention")
     check_aligned(q, k, v, "packed_causal_attention")
     b, t, h, dh = q.shape
@@ -173,11 +182,11 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         b, t, h, dh, group, build.DTYPE_CODES[q.dtype],
         q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-        1.0 / math.sqrt(dh), build.stream_handle(q.device),
+        1.0 / math.sqrt(unpadded), build.stream_handle(q.device),
     )
     build.check(err, "packed_causal_attention kernel")
     packed_causal_attention.launches += 1
-    return out
+    return out[..., :unpadded].contiguous() if width else out
 
 
 def packed_causal_attention_backward(
@@ -189,6 +198,10 @@ def packed_causal_attention_backward(
     _check_t(q)
     if q.device.type == "cpu":
         return causal_attention_backward(q, k, v, g)
+    unpadded = q.shape[-1]
+    width = padded_width(q, k, v, g)
+    if width:
+        q, k, v, g = pad_heads(width, q, k, v, g)
     check_qkv(q, k, v, "packed_causal_attention_backward")
     if g.shape != q.shape or g.device != q.device:
         raise ValueError(
@@ -213,10 +226,12 @@ def packed_causal_attention_backward(
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         b, t, h, dh, group, code,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-        1.0 / math.sqrt(dh), build.stream_handle(q.device),
+        1.0 / math.sqrt(unpadded), build.stream_handle(q.device),
     )
     build.check(err, "packed_causal_attention_backward kernel")
     packed_causal_attention.bwd_launches += 1
+    if width:
+        return tuple(x[..., :unpadded].contiguous() for x in (dq, dk, dv))
     return dq, dk, dv
 
 

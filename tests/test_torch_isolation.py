@@ -1,8 +1,8 @@
-"""coati_tpu_torch stands alone: it and chip_smoke.py import nothing of
-JAX, flax, optax or coati_tpu; without a GPU its entry points refuse to run
-unless asked for the CPU; the kernel wrappers take their plain path only
-for CPU tensors, without launching anything; and importing the kernel
-build module builds nothing."""
+"""coati_tpu_torch stands alone: it, chip_smoke.py and scripts/torch_*.py
+import nothing of JAX, flax, optax or coati_tpu; without a GPU its entry
+points refuse to run unless asked for the CPU; the kernel wrappers take
+their plain path only for CPU tensors, without launching anything; and
+importing the kernel build module builds nothing."""
 
 import ast
 import importlib
@@ -19,8 +19,10 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "coati_tpu")
 
 def _port_sources():
     """Every module of the port (models, ops, tokenizers, data, training,
-    ...) and the smoke script."""
-    return sorted((ROOT / "coati_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    ...), the smoke script and the port's scripts (scripts/torch_*.py:
+    the decode-quality protocols, the kernel variants, the probes)."""
+    return (sorted((ROOT / "coati_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "scripts").glob("torch_*.py")))
 
 
 def _imported_roots(path: Path):

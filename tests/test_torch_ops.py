@@ -765,3 +765,29 @@ def test_top_p_filter_equals_coati_tpu_s_ties_included(top_p):
         mine = tsamp.top_p_filter(_t(masked), top_p, k).numpy()
         np.testing.assert_array_equal(mine, ref)
         assert np.isfinite(mine).any(axis=-1).all()  # the most probable survives
+
+
+def test_head_dims_without_a_body_pad_to_the_next_one():
+    """A head dim no kernel body takes runs through the next wider body on
+    zero-padded copies (the kernels' CUDA route; here its width rule and
+    the padding): 24 runs as 32 in every attention kernel and in K1; a
+    width with a body, one above every body and tensors of unequal head
+    dims are left to the checks."""
+    x24, x16 = torch.ones(2, 3, 4, 24), torch.ones(2, 3, 4, 16)
+    assert kflash.padded_width(x24, x24, x24) == 32
+    assert kflash.padded_width(x24, x24, head_dims=kdecode.HEAD_DIMS) == 32
+    assert kflash.padded_width(torch.ones(1, 1, 1, 48), head_dims=kdecode.HEAD_DIMS) is None
+    assert kflash.padded_width(torch.ones(1, 1, 1, 48)) == 64
+    assert kflash.padded_width(torch.ones(1, 1, 1, 80)) is None
+    assert kflash.padded_width(x16, x16) is None
+    assert kflash.padded_width(x24, x16) is None
+    (padded,) = kflash.pad_heads(32, x24)
+    assert padded.shape == (2, 3, 4, 32) and padded.is_contiguous()
+    assert torch.equal(padded[..., :24], x24) and not padded[..., 24:].any()
+    # the zeros add nothing to a product, so the scores at 32 are those at 24
+    # (up to the order of the float32 sums)
+    g = torch.Generator().manual_seed(0)
+    q, k = torch.randn(2, 3, 4, 24, generator=g), torch.randn(2, 3, 4, 24, generator=g)
+    qp, kp = kflash.pad_heads(32, q, k)
+    torch.testing.assert_close(torch.einsum("bthd,bshd->bhts", qp, kp),
+                               torch.einsum("bthd,bshd->bhts", q, k), atol=1e-6, rtol=1e-6)

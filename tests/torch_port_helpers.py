@@ -2,7 +2,8 @@
 training against coati_tpu on the CPU: one small random COATI in both
 packages with the same weights, the map from a JAX gradient pytree to the
 port's parameter names, the comparison of the two, and the reader of a
-restart-checkpoint directory."""
+restart-checkpoint directory, and the pieces that make both packages'
+COATI2 trainers repeatable and observable within a test."""
 
 from pathlib import Path
 
@@ -11,9 +12,11 @@ import numpy as np
 import pytest
 import torch
 
+from coati_tpu.data import xform_coati2 as j_x2
 from coati_tpu.models import coati as jco
 from coati_tpu.models.io import params_to_state
 
+from coati_tpu_torch.data import xform_coati2 as t_x2
 from coati_tpu_torch.models import coati as tco
 from coati_tpu_torch.models.convert import gradients_from_coati_tpu, state_from_coati_tpu
 from coati_tpu_torch.tokenizers import get_vocab
@@ -139,7 +142,8 @@ def jax_batch(batch):
 
 
 def restart_states(directory):
-    """{step: saved payload} of a restart-checkpoint directory."""
+    """{step: saved payload} of a restart-checkpoint directory, and the pieces that make both packages'
+COATI2 trainers repeatable and observable within a test."""
     return {int(p.stem): torch.load(p, weights_only=True) for p in Path(directory).glob("*.pt")}
 
 
@@ -157,3 +161,54 @@ def assert_same_state(a, b):
         assert a.dtype == b.dtype and torch.equal(a, b)
     else:
         assert a == b
+
+
+def fixed_property_draw_order(monkeypatch):
+    """Both packages' coati2_ar_xform draw p_prop_each for each property
+    while iterating `set(PROPERTY_BUCKETS)`, whose order follows the string
+    hashes of this process (PYTHONHASHSEED): the same seeded `random` then
+    includes other properties in every process, and a test's batches change
+    from run to run. This makes both modules' `set` keep the insertion
+    order of PROPERTY_BUCKETS, so the draws, and the batches, are the same
+    in every process."""
+    for module in (j_x2, t_x2):
+        monkeypatch.setattr(module, "set", dict.fromkeys, raising=False)
+
+
+def capture_coati2_gradients(monkeypatch, port_trainer, jax_trainer):
+    """Makes both packages' COATI2 trainers keep, at every step, the
+    gradients the optimizer receives (before the clip and the update).
+    Returns (port, jax): lists, a dict per step, the JAX side's keyed as
+    the parameters' pytree and carried to the port's names by the caller."""
+    import optax
+
+    port, ref = [], []
+    make_port, make_jax = port_trainer.make_optimizer, jax_trainer.make_optimizer
+
+    def port_optimizer(config, model, grad_norm=None):
+        optimizer = make_port(config, model, grad_norm)
+        names = {id(p): n for n, p in model.named_parameters()}
+        step = optimizer.step
+
+        def step_keeping_grads(*args, **kwargs):
+            port.append({names[id(p)]: (p.grad.detach().clone() if p.grad is not None
+                                        else torch.zeros_like(p))  # a zero gradient, as optax
+                         for g in optimizer.param_groups for p in g["params"]})
+            return step(*args, **kwargs)
+
+        optimizer.step = step_keeping_grads
+        return optimizer
+
+    def jax_optimizer(config):
+        optimizer = make_jax(config)
+
+        def update(grads, state, params=None):
+            jax.debug.callback(
+                lambda g: ref.append(jax.tree_util.tree_map(np.asarray, g)), grads)
+            return optimizer.update(grads, state, params)
+
+        return optax.GradientTransformation(optimizer.init, update)
+
+    monkeypatch.setattr(port_trainer, "make_optimizer", port_optimizer)
+    monkeypatch.setattr(jax_trainer, "make_optimizer", jax_optimizer)
+    return port, ref
