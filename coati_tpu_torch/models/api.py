@@ -19,6 +19,7 @@ the device. PyTorch runs eagerly, so the JAX package's batch bucketing
 
 from __future__ import annotations
 
+import functools
 import threading
 from typing import List, Optional, Sequence, Tuple
 
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from coati_tpu_torch.common import tracing
 from coati_tpu_torch.models import coati
 from coati_tpu_torch.models.sampler import (
     auto_stage_widths,
@@ -38,6 +40,19 @@ from coati_tpu_torch.tokenizers.trie_tokenizer import TrieTokenizer
 # rows of (B, T, n_tok) float32 logits one likelihood pass may hold: 14 MB a
 # row at T 250 with the 13,603-token vocab, twice over in the log-softmax
 LIKELIHOOD_CHUNK = 64
+
+
+def public_call(fn):
+    """A public method under the span `api.<name>`: the root of a request
+    when no span is open on the thread."""
+    name = f"api.{fn.__name__}"
+
+    @functools.wraps(fn)
+    def call(self, *args, **kwargs):
+        with tracing.span(name):
+            return fn(self, *args, **kwargs)
+
+    return call
 
 
 class InjectedDecoder:
@@ -124,15 +139,19 @@ class InjectedDecoder:
             stage_widths=auto_stage_widths(len(prefix), total_len),
             top_p=top_p,
         )
-        return out.cpu().numpy()
+        with tracing.span("to_host"):
+            return out.cpu().numpy()
 
     # ------------------------------------------------------------ encode
+    @public_call
     @torch.no_grad()
     def encode_tokens(self, token_indices, tokenizer: TrieTokenizer) -> torch.Tensor:
         """(B, T) int tokens -> (B, embed_dim) embeddings, on the model's device."""
-        return self._encode(self._tokens(token_indices), tokenizer)
+        with tracing.span("encode"):
+            return self._encode(self._tokens(token_indices), tokenizer)
 
     # ---------------------------------------------------------- generate
+    @public_call
     @torch.no_grad()
     def vectors_to_2d_batch(
         self,
@@ -152,16 +171,20 @@ class InjectedDecoder:
         first. top_p: optional nucleus truncation within the top-k
         candidates; None = plain top-k."""
         if isinstance(h, torch.Tensor):
-            h = h.detach().float().cpu().numpy()
+            with tracing.span("to_host"):
+                h = h.detach().float().cpu().numpy()
         h = np.asarray(h, dtype=np.float32)
         if noise_scale > 0:
             h = h + self._sample_noise(noise_scale, h.shape)
         suffstr = "[SUFFIX][MIDDLE]" if do_suffix else ""
+        with tracing.span("encode"):
+            h_token = self._clip_token(h)
         toks = self._decode(
-            self._clip_token(h), tokenizer,
+            h_token, tokenizer,
             "[CLIP][UNK]" + fill_in_from + suffstr, inv_temp, k, None, top_p=top_p,
         )
-        smiles = tokenizer.decode_batch(toks, special=keep_special)
+        with tracing.span("detokenize"):
+            smiles = tokenizer.decode_batch(toks, special=keep_special)
         if return_tokens:
             return smiles, [list(map(int, row)) for row in toks]
         return smiles
@@ -182,6 +205,7 @@ class InjectedDecoder:
             h, tokenizer, fill_in_from, noise_scale, inv_temp, k, do_suffix
         )[0]
 
+    @public_call
     @torch.no_grad()
     def smiles_to_2d_batch(
         self,
@@ -199,18 +223,21 @@ class InjectedDecoder:
         SMILES (and optionally the embeddings, numpy) out, with no host hop
         between the encode and the decode; conditioned prefixes go through
         `fill_in_from`."""
-        h = self._encode(self._tokens(token_indices), tokenizer)
-        h_in = h
-        if noise_scale > 0:
-            noise = self._fused_noise(noise_scale, h.shape[0])
-            h_in = h + torch.as_tensor(noise, device=self.device).to(h.dtype)
+        with tracing.span("encode"):
+            h = self._encode(self._tokens(token_indices), tokenizer)
+            h_in = h
+            if noise_scale > 0:
+                noise = self._fused_noise(noise_scale, h.shape[0])
+                h_in = h + torch.as_tensor(noise, device=self.device).to(h.dtype)
+            h_token = self._to_token(h_in)
         toks = self._decode(
-            self._to_token(h_in), tokenizer, "[CLIP][UNK]" + fill_in_from, inv_temp, k,
-            total_len,
+            h_token, tokenizer, "[CLIP][UNK]" + fill_in_from, inv_temp, k, total_len,
         )
-        smiles = tokenizer.decode_batch(toks, special=keep_special)
+        with tracing.span("detokenize"):
+            smiles = tokenizer.decode_batch(toks, special=keep_special)
         if return_embeddings:
-            return smiles, h.float().cpu().numpy()
+            with tracing.span("to_host"):
+                return smiles, h.float().cpu().numpy()
         return smiles
 
 
@@ -223,17 +250,20 @@ class COATI(InjectedDecoder):
     def _to_token(self, h: torch.Tensor) -> torch.Tensor:
         return coati.clip_to_special_token(self._compute, h)
 
+    @public_call
     @torch.no_grad()
     def encode_points(self, atoms, coords) -> torch.Tensor:
         """(B, N) atomic numbers (0 = padding) and (B, N, 3) coordinates ->
         (B, embed_dim) hclip, on the model's device."""
-        atoms = torch.as_tensor(np.asarray(atoms).astype(np.int64), device=self.device)
-        coords = torch.as_tensor(np.asarray(coords, dtype=np.float32), device=self.device)
-        return coati.encode_points(self._compute, self.config, atoms, coords)
+        with tracing.span("encode"):
+            atoms = torch.as_tensor(np.asarray(atoms).astype(np.int64), device=self.device)
+            coords = torch.as_tensor(np.asarray(coords, dtype=np.float32), device=self.device)
+            return coati.encode_points(self._compute, self.config, atoms, coords)
 
     hclip_to_2d_batch = InjectedDecoder.vectors_to_2d_batch
     hclip_to_2d = InjectedDecoder.vector_to_2d
 
+    @public_call
     def points_to_2d_batch(
         self,
         atom_batch,
@@ -257,6 +287,7 @@ class COATI(InjectedDecoder):
         coords = np.asarray(coords, np.float32).reshape(1, -1, 3)
         return self.points_to_2d_batch(atoms, coords, tokenizer, do_suffix=True, **kw)[0]
 
+    @public_call
     @torch.no_grad()
     def complete_batch(
         self,
@@ -268,7 +299,7 @@ class COATI(InjectedDecoder):
         de_fim: bool = True,
     ) -> List[str]:
         """Text-prefix-conditioned generation; prefixes may differ in length."""
-        out = generate_prefix_batch(
+        toks = generate_prefix_batch(
             self._compute.xformer,
             self.config.xformer_config,
             self._generator,
@@ -278,7 +309,10 @@ class COATI(InjectedDecoder):
             k=k,
             inv_temp=inv_temp,
         )
-        return tokenizer.decode_batch(out.cpu().numpy(), special=keep_special, de_fim=de_fim)
+        with tracing.span("to_host"):
+            toks = toks.cpu().numpy()
+        with tracing.span("detokenize"):
+            return tokenizer.decode_batch(toks, special=keep_special, de_fim=de_fim)
 
     # ------------------------------------------------- fingerprint heads
     @torch.no_grad()

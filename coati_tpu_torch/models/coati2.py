@@ -25,7 +25,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from coati_tpu_torch.models.api import InjectedDecoder
+from coati_tpu_torch.common import tracing
+from coati_tpu_torch.models.api import InjectedDecoder, public_call
 from coati_tpu_torch.models.coati import clip_loss
 from coati_tpu_torch.models.transformer import (
     SmilesTransformer,
@@ -235,10 +236,13 @@ class COATI2(InjectedDecoder):
     def _to_token(self, h: torch.Tensor) -> torch.Tensor:
         return coati_to_token(self._compute, h)
 
+    @public_call
     def smiles_to_coati_vec(self, smiles, tokenizer: TrieTokenizer) -> np.ndarray:
         """A list of SMILES -> (B, embed_dim) float32 numpy."""
         tokens = [tokenizer.tokenize_text("[SMILES]" + s + "[STOP]", pad=True) for s in smiles]
-        return self.encode_tokens(np.asarray(tokens), tokenizer).float().cpu().numpy()
+        h = self.encode_tokens(np.asarray(tokens), tokenizer)
+        with tracing.span("to_host"):
+            return h.float().cpu().numpy()
 
     hcoati_to_2d_batch = InjectedDecoder.vectors_to_2d_batch
     hcoati_to_2d = InjectedDecoder.vector_to_2d

@@ -17,6 +17,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from coati_tpu_torch.common import tracing
 from coati_tpu_torch.models.transformer import (
     SmilesTransformer,
     TransformerConfig,
@@ -51,6 +52,14 @@ def _check_stage_widths(stage_widths, prefill_len: int, total_len: int) -> tuple
     return stage_widths
 
 
+def live_row_steps(tokens: torch.Tensor, stop_token: int, first: int) -> int:
+    """Decode steps from position `first` up to each row's first [STOP]
+    (the step that writes it left out), summed over the rows."""
+    is_stop = tokens == stop_token
+    end = torch.where(is_stop.any(1), is_stop.int().argmax(1), tokens.shape[1])
+    return int((end - first).clamp(min=0).sum())
+
+
 @torch.no_grad()
 def generate_tokens(
     params: SmilesTransformer,
@@ -83,40 +92,54 @@ def generate_tokens(
         )
     stage_widths = _check_stage_widths(stage_widths, prefill_len, total_len)
     b = prefix_tokens.shape[0]
-    device = prefix_tokens.device
-    tokens = prefix_tokens.to(torch.long).clone()
-    prefix_len = prefix_len.to(device)
-    params = cast_floats(params, cfg.compute_dtype)  # once, not per step
+    with tracing.span("prefill"):
+        device = prefix_tokens.device
+        tokens = prefix_tokens.to(torch.long).clone()
+        prefix_len = prefix_len.to(device)
+        params = cast_floats(params, cfg.compute_dtype)  # once, not per step
 
-    cache = make_empty_cache(cfg, b, width=total_len, device=device)
-    hidden, cache = prefill(
-        params, cfg, tokens[:, :prefill_len],
-        injection=inj_payload,
-        inject_token=inject_token if inj_payload is not None else None,
-        cache=cache,
-    )
-    # distribution for the token at position `prefill_len`
-    last_logits = linear(hidden[:, -1], params.lm_head.weight).float()
-    # a row is "stopped" once any written token equals [STOP]
-    stopped = (tokens[:, :prefill_len] == stop_token).any(dim=1)
+        cache = make_empty_cache(cfg, b, width=total_len, device=device)
+        hidden, cache = prefill(
+            params, cfg, tokens[:, :prefill_len],
+            injection=inj_payload,
+            inject_token=inject_token if inj_payload is not None else None,
+            cache=cache,
+        )
+        # distribution for the token at position `prefill_len`
+        last_logits = linear(hidden[:, -1], params.lm_head.weight).float()
+        # a row is "stopped" once any written token equals [STOP]
+        stopped = (tokens[:, :prefill_len] == stop_token).any(dim=1)
 
-    pos = prefill_len
-    for width in stage_widths:
-        # `stopped.all()` is read on the host: one device sync per step,
-        # the price of the early exit
-        while pos < width and not bool(stopped.all()):
-            sampled = sample_top_k(generator, last_logits, k, inv_temp, top_p=top_p)
-            sampled = torch.where(stopped, pad_token, sampled)
-            tok = torch.where(pos < prefix_len, tokens[:, pos], sampled)
-            tokens[:, pos] = tok
-            stopped |= tok == stop_token
-            logits, cache = decode_step(params, cfg, tok, pos, cache)
-            last_logits = logits.float()
-            pos += 1
+    with tracing.span("decode"):
+        # `stopped.all()` is read on the host before the first step and at
+        # the end of each: one device sync per step, the price of the early
+        # exit
+        with tracing.span("decode.stop_read"):
+            done = bool(stopped.all())
+        pos = prefill_len
+        for width in stage_widths:
+            while pos < width and not done:
+                with tracing.span("decode.step"):
+                    with tracing.span("decode.sample"):
+                        sampled = sample_top_k(generator, last_logits, k, inv_temp, top_p=top_p)
+                        sampled = torch.where(stopped, pad_token, sampled)
+                        tok = torch.where(pos < prefix_len, tokens[:, pos], sampled)
+                        tokens[:, pos] = tok
+                        stopped |= tok == stop_token
+                    with tracing.span("decode.forward"):
+                        logits, cache = decode_step(params, cfg, tok, pos, cache)
+                        last_logits = logits.float()
+                    pos += 1
+                    with tracing.span("decode.stop_read"):
+                        done = bool(stopped.all())
 
-    # force [STOP] at the last written position for rows that never stopped
-    last = max(pos - 1, 0)
-    tokens[:, last] = torch.where(stopped, tokens[:, last], stop_token)
+        # force [STOP] at the last written position for rows that never stopped
+        last = max(pos - 1, 0)
+        tokens[:, last] = torch.where(stopped, tokens[:, last], stop_token)
+    if tracing.started():
+        tracing.count("decode.row_steps", b * (pos - prefill_len))
+        tracing.count("decode.live_row_steps",
+                      live_row_steps(tokens[:, :pos], stop_token, prefill_len))
     return tokens
 
 

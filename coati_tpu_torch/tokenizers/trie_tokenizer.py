@@ -13,6 +13,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from coati_tpu_torch.common import tracing
 from coati_tpu_torch.common.util import colored_background
 from coati_tpu_torch.tokenizers.matcher import VocabMatcher
 
@@ -69,15 +70,16 @@ class TrieTokenizer:
     def tokenize_text(
         self, text: str, pad: bool = True, range_check: bool = True
     ) -> List[int]:
-        try:
-            ids = [self.vocab[t] for t in self.pre_tokenize(text)]
-            if len(ids) > self.n_seq and range_check:
-                raise ValueError(f"Oversized String ({len(ids)} > {self.n_seq})")
-            if pad:
-                ids = ids + [self.pad_token] * (self.n_seq - len(ids))
-        except Exception as ex:
-            print("tokenize text exception... ", text, ex, self.pre_tokenize(text))
-            raise
+        with tracing.span("tokenize", record=False):
+            try:
+                ids = [self.vocab[t] for t in self.pre_tokenize(text)]
+                if len(ids) > self.n_seq and range_check:
+                    raise ValueError(f"Oversized String ({len(ids)} > {self.n_seq})")
+                if pad:
+                    ids = ids + [self.pad_token] * (self.n_seq - len(ids))
+            except Exception as ex:
+                print("tokenize text exception... ", text, ex, self.pre_tokenize(text))
+                raise
         return ids
 
     def batch_smiles(

@@ -55,6 +55,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from coati_tpu_torch.common import tracing
 from coati_tpu_torch.common.util import makedir, resolve_device
 from coati_tpu_torch.data.xform import clip_ar_xform
 from coati_tpu_torch.models import coati as F
@@ -188,7 +189,8 @@ class DeferredMetrics:
     def drain(self):
         if self._pending is not None:
             pending, self._pending = self._pending, None
-            self._process(*pending)
+            with tracing.span("train.device_wait"):
+                self._process(*pending)
 
     def push(self, step_idx, metrics, batch_size):
         self._pending = (step_idx, metrics, batch_size)
@@ -526,20 +528,30 @@ class MeshRun:
     def batches(self, pipe, to_device, dtypes, count_tokens, accept=lambda batch: True):
         """(host batch or None, device batch, global rows, global tokens) per
         step. Host batches the step cannot take (`accept` false) are skipped
-        before the ranks agree."""
-        if self.mesh is None:
-            for batch in pipe:
-                if accept(batch):
-                    yield batch, to_device(batch), batch["tokens"].shape[0], count_tokens(batch)
-            return
-        source = self.axes.model_source == self.rank
+        before the ranks agree. The wait for each batch from the pipe is the
+        span `train.batch`, its copy to the device `train.to_device`."""
+
+        def fetch(it):
+            with tracing.span("train.batch"):
+                return next(it, None)
+
+        def copy(batch):
+            with tracing.span("train.to_device"):
+                return to_device(batch)
+
+        source = self.mesh is None or self.axes.model_source == self.rank
         it = iter(pipe) if source else None
+        if self.mesh is None:
+            while (batch := fetch(it)) is not None:
+                if accept(batch):
+                    yield batch, copy(batch), batch["tokens"].shape[0], count_tokens(batch)
+            return
         while True:
             batch = None
             if source:
-                batch = next(it, None)
+                batch = fetch(it)
                 while batch is not None and not accept(batch):
-                    batch = next(it, None)
+                    batch = fetch(it)
             here = batch is not None
             local = torch.tensor([int(here or not source),
                                   batch["tokens"].shape[0] if here else 0,
@@ -547,7 +559,7 @@ class MeshRun:
             all_reduce_(local, self.host_group)
             if int(local[0]) < self.world:
                 return
-            dev = to_device(batch) if source else None
+            dev = copy(batch) if source else None
             if self.axes.n_model > 1:
                 dev = broadcast_batch(dev, dtypes, self.axes.model_group,
                                       self.axes.model_source, self.device)
@@ -667,17 +679,18 @@ def train_autoencoder(
     step_eval = make_train_step(model, model_cfg, optimizer, is_training=False, **step_kwargs)
 
     def xform_routine(batch):
-        return clip_ar_xform(
-            batch,
-            tokenizer=tokenizer,
-            p_dataset=config.p_dataset,
-            p_formula=config.p_formula,
-            p_fim=config.p_fim,
-            p_graph=config.p_graph,
-            p_clip=config.p_clip,
-            p_clip_cut=config.p_clip_cut,
-            p_randsmiles=config.p_randsmiles,
-        )
+        with tracing.span("train.xform"):
+            return clip_ar_xform(
+                batch,
+                tokenizer=tokenizer,
+                p_dataset=config.p_dataset,
+                p_formula=config.p_formula,
+                p_fim=config.p_fim,
+                p_graph=config.p_graph,
+                p_clip=config.p_clip,
+                p_clip_cut=config.p_clip_cut,
+                p_randsmiles=config.p_randsmiles,
+            )
 
     # each data rank draws its own clip-token choices; a model group's
     # ranks draw the same ones
@@ -764,7 +777,7 @@ def train_autoencoder(
                     seq=seq,
                     natoms=device_batch["atoms"].shape[1],
                 )
-            with timer:
+            with timer, tracing.span("train.step"):
                 if not dm.sync:
                     # drain the previous step only now (its device work
                     # overlapped this batch's host transform and transfer)
@@ -772,7 +785,8 @@ def train_autoencoder(
                     dm.drain()
                 if partition == "train":
                     results["learning_rates"].append(optimizer.param_groups[0]["lr"])
-                    metrics = step_train(generator, device_batch)
+                    with tracing.span("train.forward_backward"):
+                        metrics = step_train(generator, device_batch)
                     global_step += 1
                 else:
                     metrics = step_eval(generator, device_batch)

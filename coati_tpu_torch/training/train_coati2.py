@@ -42,6 +42,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from coati_tpu_torch.common import tracing
 from coati_tpu_torch.data.xform_coati2 import coati2_ar_xform
 from coati_tpu_torch.models import coati2 as C2
 from coati_tpu_torch.models.coati2 import Coati2Config, Coati2Model
@@ -315,10 +316,11 @@ def train_coati2(
                                        **step_kwargs)
 
     def xform_routine(batch):
-        return coati2_ar_xform(
-            batch, tokenizer=tokenizer, p_props=config.p_props,
-            p_prop_each=config.p_prop_each, p_clip=config.p_clip, p_dataset=config.p_dataset,
-        )
+        with tracing.span("train.xform"):
+            return coati2_ar_xform(
+                batch, tokenizer=tokenizer, p_props=config.p_props,
+                p_prop_each=config.p_prop_each, p_clip=config.p_clip, p_dataset=config.p_dataset,
+            )
 
     results = {"epochs": [], "losses": [], "best_test": 1e10, "best_epoch": 0,
                "history": [], "train_step_seconds": []}
@@ -376,15 +378,17 @@ def train_coati2(
                     n_hidden_xformer=config.n_hidden_xformer,
                     n_tok=tokenizer.n_token, batch=bsz, seq=seq,
                 )
-            with timer:
+            with timer, tracing.span("train.step"):
                 if not dm.sync:
                     # drain the previous step only now (its device work
                     # overlapped this batch's host transform and transfer)
                     dm.drain()
-                step = step_train if partition == "train" else step_eval
-                metrics = step(device_batch)
                 if partition == "train":
+                    with tracing.span("train.forward_backward"):
+                        metrics = step_train(device_batch)
                     global_step += 1
+                else:
+                    metrics = step_eval(device_batch)
                 if dm.sync:
                     dm.push(i, metrics, bsz)
             if not dm.sync:
