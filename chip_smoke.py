@@ -68,6 +68,19 @@ number is taken.
     by those launches, beside its bound and the same launches priced at
     pos 95. Every traced call lists the device time of each of the port's
     kernels by name.
+    decode_graph: the decode step captured once as a CUDA graph and
+    replayed each token (models/decode_graph.py). K1's form that reads pos
+    on the card against its host-int form at every position of B 1024,
+    int8, T 250 (COATI) and T 128, Dh 32 (COATI2): the same bits where
+    both take the same groups, else within 2 bf16 ulps; both timed at pos
+    95, within 2%. Then the production round trip of 1,024 corpus SMILES
+    (the trained document, then seeded COATI2) graphed and eager: greedy
+    and sampled tokens equal under one generator seed, K1's launch counts
+    equal, one capture, a replay for every decode step; capture seconds,
+    kept shapes, the graph's static bytes and each way's seconds printed.
+    Then (the trained document) greedy calls cycling over six batch sizes
+    from 16 to 256, three rounds, against eager: the same tokens; each
+    round's seconds and captures, and the memory reserved and at peak.
     train: train_autoencoder with the grande recipe as it is written (16 x
     256 transformer, 5 x 256 EGNN, bf16 over float32 masters, batch 160,
     n_seq 80, remat of the transformer blocks, every row canonicalized, 30%
@@ -850,8 +863,9 @@ def record_shapes(decode_calls=None):
     forward's shapes), and (B, T, H, Dh, q dtype, cache) -> positions of
     every decode step; with `decode_calls` (a Counter), also K1's calls by
     the form of the cache ("float32", "bfloat16", "int8/float32", ...).
-    The wrappers still count their launches."""
-    from coati_tpu_torch.models import transformer
+    The wrappers still count their launches. Decode steps run eagerly
+    meanwhile (decode_graph.eager), so every step's call is seen."""
+    from coati_tpu_torch.models import decode_graph, transformer
 
     full, decode = set(), collections.defaultdict(set)
 
@@ -886,7 +900,8 @@ def record_shapes(decode_calls=None):
     transformer.decode_attention = decode_call(saved["decode_attention"], False)
     transformer.decode_attention_quant = decode_call(saved["decode_attention_quant"], True)
     try:
-        yield full, decode
+        with decode_graph.eager():
+            yield full, decode
     finally:
         for name, fn in saved.items():
             setattr(transformer, name, fn)
@@ -1061,8 +1076,10 @@ def plain_versions():
     """Route the model to the kernels' plain versions, for comparison:
     swaps the kernel wrappers that the transformer and EGNN modules call.
     The plain forwards are plain tensor code, so a backward through them is
-    PyTorch's own autograd and reaches neither K4, K5b nor K2's replay."""
-    from coati_tpu_torch.models import egnn, transformer
+    PyTorch's own autograd and reaches neither K4, K5b nor K2's replay.
+    Decode steps run eagerly meanwhile (decode_graph.eager): a graph
+    captured over the plain versions must not outlive the swap."""
+    from coati_tpu_torch.models import decode_graph, egnn, transformer
     from coati_tpu_torch.ops import attention as plain
     from coati_tpu_torch.ops import egnn_messages as plain_messages
 
@@ -1080,7 +1097,8 @@ def plain_versions():
     for module, name, fn in swaps:
         setattr(module, name, fn)
     try:
-        yield
+        with decode_graph.eager():
+            yield
     finally:
         for module, name, fn in saved:
             setattr(module, name, fn)
@@ -1541,6 +1559,231 @@ def phase_k1_positions(n_layer):
               "k1_ms_per_call": total, "k1_ms_per_launch": total / (n_layer * steps),
               "bound_ms_per_call": n_layer * sum(bound(p) for p in positions),
               "priced_at_pos95_ms": n_layer * steps * ms(width, 95)})
+
+
+class _KeepRows:
+    """The tokenizer, keeping the token rows of the last call it
+    detokenized."""
+
+    def __init__(self, tok):
+        self._tok, self.rows = tok, None
+
+    def decode_batch(self, rows, *args, **kwargs):
+        self.rows = np.asarray(rows)
+        return self._tok.decode_batch(rows, *args, **kwargs)
+
+    def __getattr__(self, name):
+        return getattr(self._tok, name)
+
+
+def _k1_device_position(label, t, h, dh, gen):
+    """K1's int8 form (bf16 query, float32 scales, B 1024) read at a
+    position on the card against the host int, at every position of a
+    cache of width t: the same bits where both take the same groups G (the
+    device form takes them for t - 1), else within 2 bf16 ulps; both timed
+    at pos 95."""
+    from coati_tpu_torch.models.transformer import quantize_kv
+    from coati_tpu_torch.ops.kernels import decode_attention as k1
+
+    b = 1024
+    q = torch.randn(b, h, dh, generator=gen, device="cuda").to(torch.bfloat16)
+    kv = torch.randn(2, b, t, h, dh, generator=gen, device="cuda")
+    (k8, ks), (v8, vs) = quantize_kv(kv[0]), quantize_kv(kv[1])
+    at = torch.zeros(1, dtype=torch.int32, device="cuda")
+    form = (torch.bfloat16, torch.int8, torch.float32)
+    g_dev = k1.groups(b, h, dh, t - 1, *form)
+    equal_g, differ, worst = [], [], 0.0
+    for pos in range(t):
+        at.fill_(pos)
+        host = k1.decode_attention_quant(q, k8, ks, v8, vs, pos)
+        dev = k1.decode_attention_quant(q, k8, ks, v8, vs, at)
+        if k1.groups(b, h, dh, pos, *form) == g_dev:
+            equal_g.append(pos)
+            ok = torch.equal(host, dev)
+        else:
+            err = float((host.float() - dev.float()).abs().max())
+            worst = max(worst, err / tolerance(host, torch.bfloat16, 0.0))
+            ok = err <= tolerance(host, torch.bfloat16, 0.0)
+        if not ok:
+            differ.append(pos)
+    at.fill_(95)
+    times = {"host": [], "device": []}
+    for _ in range(2):  # interleaved
+        times["host"].append(time_ms(lambda: k1.decode_attention_quant(q, k8, ks, v8, vs, 95)))
+        times["device"].append(time_ms(lambda: k1.decode_attention_quant(q, k8, ks, v8, vs, at)))
+    host_ms, dev_ms = min(times["host"]), min(times["device"])
+    line = {"phase": "decode_graph_k1", "model": label, "shape": [b, t, h, dh],
+            "groups_device_form": g_dev, "positions_with_equal_groups": [equal_g[0], t - 1],
+            "positions_outside_tolerance": differ, "worst_over_tolerance_elsewhere": worst,
+            "ms_pos95_host": host_ms, "ms_pos95_device": dev_ms, "times": times}
+    emit(line)
+    check(not differ, f"decode_graph {label}: K1's device-position form differs at {differ}")
+    check(abs(dev_ms / host_ms - 1) <= 0.02,
+          f"decode_graph {label}: K1 at pos 95 {dev_ms} ms on the card's position, {host_ms} "
+          "by the host int")
+
+
+def _tracer_totals() -> dict:
+    """The tracer's graph counters and decode-step count so far."""
+    from coati_tpu_torch.common import tracing
+
+    snap = tracing.snapshot()
+    return {"captures": snap["counters"].get("decode.graph_captures", 0),
+            "graph_steps": snap["counters"].get("decode.graph_steps", 0),
+            "steps": snap["spans"].get("decode.step", {}).get("count", 0),
+            "capture_seconds": snap["spans"].get("decode.capture", {}).get("seconds", 0.0)}
+
+
+def _graphed_vs_eager(label, model, tok, tokens, n_layer):
+    """A handle's round trips eagerly (decode_graph.eager) and through the
+    decode graph, greedy and sampled under one generator seed. The graphed
+    side first makes two greedy calls, which note the shape (unless met
+    before) and capture its graph; the compared calls replay it: the same
+    tokens and the same K1 launch counts as eager, a replay for every
+    step. The two set-up calls launch K1 as eager's greedy call does, plus
+    one warm-up step where this thread captures the shape for the first
+    time. Prints captures, capture seconds, kept shapes, the graph's
+    static bytes and the seconds of each way (medians of three sampled
+    calls)."""
+    from coati_tpu_torch.common import tracing
+    from coati_tpu_torch.models import decode_graph
+
+    keep = _KeepRows(tok)
+
+    def run(k, seed):
+        model._generator.manual_seed(seed)
+        _, seconds, launches = _timed(
+            lambda: model.smiles_to_2d_batch(tokens, keep, k=k, inv_temp=2.0))
+        return keep.rows, seconds, launches["decode_attention_quant"]
+
+    with decode_graph.eager():
+        eager = {k: run(k, 5) for k in (1, 100)}
+    tracing.reset()
+    tracing.start()
+    setup = [run(1, 5) for _ in range(2)]
+    after_setup = _tracer_totals()
+    graphed = {k: run(k, 5) for k in (1, 100)}
+    compared = _tracer_totals()
+    tracing.stop()
+    seconds = {"graphed": [run(100, 6 + i)[1] for i in range(3)]}
+    with decode_graph.eager():
+        seconds["eager"] = [run(100, 6 + i)[1] for i in range(3)]
+    compute = model._compute.xformer
+    graph = next(iter(decode_graph._graphs[compute].values()))
+    steps = {k: graphed[k][2] // n_layer for k in graphed}
+    setup_extra = sum(x[2] for x in setup) - 2 * eager[1][2]
+    line = {"phase": "decode_graph", "model": label, "batch": len(tokens),
+            "greedy_equal": all(np.array_equal(x[0], eager[1][0]) for x in (*setup, graphed[1])),
+            "sampled_equal": bool(np.array_equal(graphed[100][0], eager[100][0])),
+            "k1_launches_graphed": {k: graphed[k][2] for k in graphed},
+            "k1_launches_eager": {k: eager[k][2] for k in eager},
+            "k1_launches_setup": [x[2] for x in setup], "setup_warmup_launches": setup_extra,
+            "decode_steps": steps, "setup": after_setup, "compared": compared,
+            "capture_seconds": after_setup["capture_seconds"],
+            "kept_shapes": decode_graph.kept_shapes(compute), "static_bytes": graph.bytes,
+            "seconds_graphed": seconds["graphed"], "seconds_eager": seconds["eager"],
+            "speedup": statistics.median(seconds["eager"]) / statistics.median(
+                seconds["graphed"])}
+    emit(line)
+    check(line["greedy_equal"] and line["sampled_equal"],
+          f"decode_graph {label}: graphed tokens differ from the eager path's")
+    check(all(graphed[k][2] == eager[k][2] and graphed[k][2] % n_layer == 0 for k in graphed)
+          and setup_extra in (0, n_layer),
+          f"decode_graph {label}: K1 launch counts {line['k1_launches_graphed']} graphed, "
+          f"{line['k1_launches_eager']} eager, {line['k1_launches_setup']} in set-up")
+    check(after_setup["captures"] == 1 and compared["captures"] == 1
+          and compared["graph_steps"] - after_setup["graph_steps"] == sum(steps.values())
+          == compared["steps"] - after_setup["steps"],
+          f"decode_graph {label}: counters {after_setup} after set-up, {compared} after")
+
+
+CHURN_ROWS = (16, 48, 96, 160, 224, 256)  # batch sizes a micro-batcher (max 256) may flush
+
+
+def _shape_churn(label, model, tok, tokens):
+    """Greedy calls cycling over six batch sizes, three rounds, against the
+    same calls eager: the first round meets each size once (eager by the
+    second-use rule, unless met before); past it the handle's MAX_SHAPES
+    kept graphs never hold the size that comes next, so every call
+    captures, the worst case of the bound. Tokens equal eager's; seconds,
+    captures and memory of each round."""
+    from coati_tpu_torch.common import tracing
+    from coati_tpu_torch.models import decode_graph
+
+    keep = _KeepRows(tok)
+
+    def run(b):
+        _, seconds, _ = _timed(
+            lambda: model.smiles_to_2d_batch(tokens[:b], keep, k=1, inv_temp=1.0))
+        return keep.rows, seconds
+
+    with decode_graph.eager():
+        eager = {b: run(b) for b in CHURN_ROWS}
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    tracing.reset()
+    tracing.start()
+    rounds, differ = [], []
+    for r in range(3):
+        before = _tracer_totals()
+        out = {b: run(b) for b in CHURN_ROWS}
+        after = _tracer_totals()
+        differ += [[r, b] for b in CHURN_ROWS if not np.array_equal(out[b][0], eager[b][0])]
+        rounds.append({"seconds": sum(x[1] for x in out.values()),
+                       "captures": after["captures"] - before["captures"],
+                       "graph_steps": after["graph_steps"] - before["graph_steps"],
+                       "steps": after["steps"] - before["steps"],
+                       "capture_seconds": after["capture_seconds"] - before["capture_seconds"]})
+    tracing.stop()
+    torch.cuda.synchronize()
+    line = {"phase": "decode_graph_churn", "model": label, "rows": list(CHURN_ROWS),
+            "eager_seconds": sum(x[1] for x in eager.values()), "rounds": rounds,
+            "differing": differ, "kept_shapes": decode_graph.kept_shapes(model._compute.xformer),
+            "reserved_bytes_before": reserved, "reserved_bytes_after": torch.cuda.memory_reserved(),
+            "peak_allocated_bytes": torch.cuda.max_memory_allocated()}
+    emit(line)
+    check(not differ, f"decode_graph churn {label}: graphed tokens differ at {differ}")
+    check(line["kept_shapes"] <= decode_graph.MAX_SHAPES,
+          f"decode_graph churn {label}: {line['kept_shapes']} graphs kept")
+
+
+def phase_decode_graph(model, tok):
+    """The decode step captured once as a CUDA graph (models/decode_graph.py),
+    K1 reading its position on the card: K1's two entries at every position
+    of COATI's and COATI2's production caches; then the trained document's
+    and seeded COATI2's production round trips of 1,024 corpus SMILES,
+    graphed against eager."""
+    from coati_tpu_torch.models.api import COATI
+    from coati_tpu_torch.models.coati2 import COATI2
+    from coati_tpu_torch.models.io import load_coati2, model_to_state, serialize_model
+    from coati_tpu_torch.training.train_coati2 import Coati2TrainConfig, fresh_model
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    _k1_device_position("coati", 250, 16, 16, gen)
+    _k1_device_position("coati2", 128, 16, 32, gen)
+
+    prod = COATI(model.params, model.config.replace(dtype="bfloat16"), seed=0)
+    tokens = _tokens(tok, _coati2_corpus(tok, 1024), tok.n_seq)
+    _graphed_vs_eager("coati", prod, tok, tokens, model.config.n_layer_xformer)
+    _shape_churn("coati", prod, tok, tokens)
+    del prod
+
+    tok2 = _coati2_tokenizer()
+    config = Coati2TrainConfig(**COATI2_GRANDE)
+    if not COATI2_DOC.exists():
+        fresh = fresh_model(config.model_config(tok2.n_token), torch.device("cpu"), seed=0)
+        COATI2_DOC.parent.mkdir(parents=True, exist_ok=True)
+        COATI2_DOC.write_bytes(serialize_model(
+            train_args={"tokenizer_vocab": "coati2_12_12"}, dataset_summary={},
+            model_state=model_to_state(fresh), model_kwargs=config.model_kwargs(tok2.n_token)))
+        del fresh
+    m, tok2 = load_coati2(str(COATI2_DOC))
+    prod2 = COATI2(m.params, m.config.replace(dtype="bfloat16"), seed=0)
+    tokens2 = _tokens(tok2, _coati2_corpus(tok2, 1024), tok2.n_seq)
+    _graphed_vs_eager("coati2", prod2, tok2, tokens2, m.config.n_layer_xformer)
+    del prod2, m
+    torch.cuda.empty_cache()
 
 
 # numbers one phase measures and a later one prints beside its own
@@ -4170,6 +4413,8 @@ def main() -> int:
     lap("packed")
     phase_k1_positions(model.config.n_layer_xformer)
     lap("k1_positions")
+    phase_decode_graph(model, tok)
+    lap("decode_graph")
     del model
     paths["coati2"] = phase_coati2()
     lap("coati2")

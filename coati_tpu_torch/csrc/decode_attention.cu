@@ -42,8 +42,16 @@
 //    kernel's occupancy (at least two blocks an SM: at most 128 registers):
 //    one wave at B 1024 (G 4 for int8 at H 16, Dh 16). Rows of fewer than
 //    256 threads share a block;
-//  * pos is a host int passed by value: launching needs no device sync;
-//    the kernel allocates nothing.
+//  * two entries. `decode_attention` takes pos as a host int passed by
+//    value: launching needs no device sync. `decode_attention_at` reads pos
+//    from one int32 on the card (each thread loads it once, clamped to the
+//    cache), so that a captured CUDA graph serves every position: there G
+//    is chosen by the same rule for a position the caller names
+//    (`group_pos`, the last one the graph runs), not for pos. A group
+//    with no position at or below pos takes no items and merges as an
+//    empty state (m = kNegInf, l = 0, acc = 0), which adds nothing: where
+//    both entries take the same G they give the same bits. The kernel
+//    allocates nothing.
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -167,7 +175,8 @@ __global__ void __launch_bounds__(kBlock, 2)
     decode_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
                   const KT* __restrict__ v, const ST* __restrict__ k_scale,
                   const ST* __restrict__ v_scale, QT* __restrict__ o, int batch, int width,
-                  int heads, int groups, int pos, float scale_log2) {
+                  int heads, int groups, int pos, const int* __restrict__ pos_at,
+                  float scale_log2) {
   using Items = Chunk<KT, ST, QUANT>;
   constexpr int kC = Items::kSize;
   constexpr int kE = elems<KT>();   // elements a thread holds of a head
@@ -188,6 +197,7 @@ __global__ void __launch_bounds__(kBlock, 2)
   // an item's lanes: kSplit consecutive lanes of one warp
   const int lane = threadIdx.x % 32;
   const unsigned mask = ((1u << kSplit) - 1) << (lane / kSplit * kSplit);
+  if (pos_at != nullptr) pos = min(max(__ldg(pos_at), 0), width - 1);
 
   // positions g, g + G, ... <= pos; segment `part` of item (b, s, h)
   const int n = (live && g <= pos) ? (pos - g) / groups + 1 : 0;
@@ -280,10 +290,22 @@ int row_groups(int batch, int span, int pos, long long resident) {
   return g;
 }
 
+// A call of either entry: the tensors, the shape, the position (`pos`, or
+// the int32 at `pos_at` on the card), the position G is chosen for, and
+// the stream. With `groups_out` set, G is written there and nothing runs.
+struct Call {
+  const void *q, *k, *v, *ks, *vs;
+  void* o;
+  int batch, width, heads, head_dim, pos;
+  const int* pos_at;
+  int group_pos;
+  float scale;
+  cudaStream_t stream;
+  int* groups_out;
+};
+
 template <typename QT, typename KT, typename ST, int DH, bool QUANT>
-int launch_dh(const void* q, const void* k, const void* v, const void* ks, const void* vs,
-              void* o, int batch, int width, int heads, int pos, float scale,
-              cudaStream_t stream) {
+int launch_dh(const Call& c) {
   auto kernel = decode_kernel<QT, KT, ST, DH, QUANT>;
   static long long resident = 0;  // threads of this kernel the card holds at once
   if (resident == 0) {
@@ -293,44 +315,50 @@ int launch_dh(const void* q, const void* k, const void* v, const void* ks, const
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kBlock, 0);
     resident = static_cast<long long>(sms) * blocks * kBlock;
   }
-  const int span = heads * DH / elems<KT>();  // threads a group: one a 16-byte segment
-  const int groups = row_groups(batch, span, pos, resident);
+  const int span = c.heads * DH / elems<KT>();  // threads a group: one a 16-byte segment
+  const int groups = row_groups(c.batch, span, c.group_pos, resident);
+  if (c.groups_out != nullptr) {
+    *c.groups_out = groups;
+    return 0;
+  }
   const int rows = kBlock / (groups * span);  // rows a block
-  const int grid = (batch + rows - 1) / rows;
-  kernel<<<grid, rows * groups * span, 0, stream>>>(
-      static_cast<const QT*>(q), static_cast<const KT*>(k), static_cast<const KT*>(v),
-      static_cast<const ST*>(ks), static_cast<const ST*>(vs), static_cast<QT*>(o), batch,
-      width, heads, groups, pos, scale * kLog2e);
+  const int grid = (c.batch + rows - 1) / rows;
+  kernel<<<grid, rows * groups * span, 0, c.stream>>>(
+      static_cast<const QT*>(c.q), static_cast<const KT*>(c.k), static_cast<const KT*>(c.v),
+      static_cast<const ST*>(c.ks), static_cast<const ST*>(c.vs), static_cast<QT*>(c.o),
+      c.batch, c.width, c.heads, groups, c.pos, c.pos_at, c.scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename QT, typename KT, typename ST, bool QUANT>
-int launch(const void* q, const void* k, const void* v, const void* ks, const void* vs,
-           void* o, int batch, int width, int heads, int head_dim, int pos, float scale,
-           cudaStream_t stream) {
-  if (heads < 1 || heads * head_dim > 1024) return static_cast<int>(cudaErrorInvalidValue);
-  switch (head_dim) {
+int launch(const Call& c) {
+  if (c.heads < 1 || c.heads * c.head_dim > 1024) return static_cast<int>(cudaErrorInvalidValue);
+  switch (c.head_dim) {
     case 16:
-      return launch_dh<QT, KT, ST, 16, QUANT>(q, k, v, ks, vs, o, batch, width, heads, pos,
-                                              scale, stream);
+      return launch_dh<QT, KT, ST, 16, QUANT>(c);
     case 32:
-      return launch_dh<QT, KT, ST, 32, QUANT>(q, k, v, ks, vs, o, batch, width, heads, pos,
-                                              scale, stream);
+      return launch_dh<QT, KT, ST, 32, QUANT>(c);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 template <typename QT>
-int launch_quant(const void* q, const void* k, const void* v, const void* ks,
-                 const void* vs, void* o, int batch, int width, int heads, int head_dim,
-                 int pos, int scale_dtype, float scale, cudaStream_t stream) {
-  if (scale_dtype == coati::kF32)
-    return launch<QT, int8_t, float, true>(q, k, v, ks, vs, o, batch, width, heads,
-                                           head_dim, pos, scale, stream);
-  if (scale_dtype == coati::kBF16)
-    return launch<QT, int8_t, __nv_bfloat16, true>(q, k, v, ks, vs, o, batch, width,
-                                                   heads, head_dim, pos, scale, stream);
+int launch_quant(const Call& c, int scale_dtype) {
+  if (scale_dtype == coati::kF32) return launch<QT, int8_t, float, true>(c);
+  if (scale_dtype == coati::kBF16) return launch<QT, int8_t, __nv_bfloat16, true>(c);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int dispatch(const Call& c, int q_dtype, int kv_dtype, int scale_dtype) {
+  if (kv_dtype == coati::kI8) {
+    if (q_dtype == coati::kF32) return launch_quant<float>(c, scale_dtype);
+    if (q_dtype == coati::kBF16) return launch_quant<__nv_bfloat16>(c, scale_dtype);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (kv_dtype != q_dtype) return static_cast<int>(cudaErrorInvalidValue);
+  if (q_dtype == coati::kF32) return launch<float, float, float, false>(c);
+  if (q_dtype == coati::kBF16) return launch<__nv_bfloat16, __nv_bfloat16, float, false>(c);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -345,22 +373,30 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 int width, int heads, int head_dim, int pos, int q_dtype,
                                 int kv_dtype, int scale_dtype, float scale,
                                 void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  if (kv_dtype == coati::kI8) {
-    if (q_dtype == coati::kF32)
-      return launch_quant<float>(q, k, v, ks, vs, o, batch, width, heads, head_dim, pos,
-                                 scale_dtype, scale, s);
-    if (q_dtype == coati::kBF16)
-      return launch_quant<__nv_bfloat16>(q, k, v, ks, vs, o, batch, width, heads,
-                                         head_dim, pos, scale_dtype, scale, s);
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (kv_dtype != q_dtype) return static_cast<int>(cudaErrorInvalidValue);
-  if (q_dtype == coati::kF32)
-    return launch<float, float, float, false>(q, k, v, ks, vs, o, batch, width, heads,
-                                              head_dim, pos, scale, s);
-  if (q_dtype == coati::kBF16)
-    return launch<__nv_bfloat16, __nv_bfloat16, float, false>(
-        q, k, v, ks, vs, o, batch, width, heads, head_dim, pos, scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const Call c{q, k, v, ks, vs, o, batch, width, heads, head_dim, pos, nullptr, pos,
+               scale, static_cast<cudaStream_t>(stream), nullptr};
+  return dispatch(c, q_dtype, kv_dtype, scale_dtype);
+}
+
+// decode_attention with pos read on the card from the int32 at `pos` (as
+// it is when the kernel runs: a captured graph replays it at each step's
+// position) and G chosen for the host int `group_pos`.
+extern "C" int decode_attention_at(const void* q, const void* k, const void* v,
+                                   const void* ks, const void* vs, void* o, int batch,
+                                   int width, int heads, int head_dim, const int* pos,
+                                   int group_pos, int q_dtype, int kv_dtype, int scale_dtype,
+                                   float scale, void* stream) {
+  const Call c{q, k, v, ks, vs, o, batch, width, heads, head_dim, 0, pos, group_pos,
+               scale, static_cast<cudaStream_t>(stream), nullptr};
+  return dispatch(c, q_dtype, kv_dtype, scale_dtype);
+}
+
+// The groups G a row takes at position `pos` (the host entry's rule) for
+// this form and shape, in `*groups`; launches nothing. Returns a cudaError_t.
+extern "C" int decode_attention_groups(int batch, int heads, int head_dim, int pos,
+                                       int q_dtype, int kv_dtype, int scale_dtype,
+                                       int* groups) {
+  const Call c{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, batch, 0, heads,
+               head_dim, pos, nullptr, pos, 0.f, nullptr, groups};
+  return dispatch(c, q_dtype, kv_dtype, scale_dtype);
 }

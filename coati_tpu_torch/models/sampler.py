@@ -13,11 +13,13 @@ Sampling distribution: multinomial(softmax(top-k logits * inv_temp)).
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence
 
 import torch
 
 from coati_tpu_torch.common import tracing
+from coati_tpu_torch.models import decode_graph
 from coati_tpu_torch.models.transformer import (
     SmilesTransformer,
     TransformerConfig,
@@ -92,50 +94,63 @@ def generate_tokens(
         )
     stage_widths = _check_stage_widths(stage_widths, prefill_len, total_len)
     b = prefix_tokens.shape[0]
-    with tracing.span("prefill"):
-        device = prefix_tokens.device
-        tokens = prefix_tokens.to(torch.long).clone()
-        prefix_len = prefix_len.to(device)
-        params = cast_floats(params, cfg.compute_dtype)  # once, not per step
+    device = prefix_tokens.device
+    compute = cast_floats(params, cfg.compute_dtype)  # once, not per step
+    graphed = decode_graph.step_graph(params, compute, cfg, b, total_len, device) \
+        if total_len > prefill_len else contextlib.nullcontext()
+    with graphed as graph:
+        with tracing.span("prefill"):
+            tokens = prefix_tokens.to(torch.long).clone()
+            prefix_len = prefix_len.to(device)
+            cache = graph.cache if graph is not None else \
+                make_empty_cache(cfg, b, width=total_len, device=device)
+            hidden, cache = prefill(
+                compute, cfg, tokens[:, :prefill_len],
+                injection=inj_payload,
+                inject_token=inject_token if inj_payload is not None else None,
+                cache=cache,
+            )
+            # distribution for the token at position `prefill_len`
+            last_logits = linear(hidden[:, -1], compute.lm_head.weight).float()
+            # a row is "stopped" once any written token equals [STOP]
+            stopped = (tokens[:, :prefill_len] == stop_token).any(dim=1)
 
-        cache = make_empty_cache(cfg, b, width=total_len, device=device)
-        hidden, cache = prefill(
-            params, cfg, tokens[:, :prefill_len],
-            injection=inj_payload,
-            inject_token=inject_token if inj_payload is not None else None,
-            cache=cache,
-        )
-        # distribution for the token at position `prefill_len`
-        last_logits = linear(hidden[:, -1], params.lm_head.weight).float()
-        # a row is "stopped" once any written token equals [STOP]
-        stopped = (tokens[:, :prefill_len] == stop_token).any(dim=1)
+        with tracing.span("decode"):
+            # `stopped.all()` is read on the host before the first step and
+            # at the end of each: one device sync per step, the price of the
+            # early exit (under a graph it waits for the step's sampling
+            # only, not for its replay)
+            with tracing.span("decode.stop_read"):
+                done = bool(stopped.all())
+            pos = prefill_len
+            if graph is not None:
+                graph.start(pos)
+            for width in stage_widths:
+                while pos < width and not done:
+                    with tracing.span("decode.step"):
+                        with tracing.span("decode.sample"):
+                            sampled = sample_top_k(generator, last_logits, k, inv_temp,
+                                                   top_p=top_p)
+                            sampled = torch.where(stopped, pad_token, sampled)
+                            tok = torch.where(pos < prefix_len, tokens[:, pos], sampled)
+                            tokens[:, pos] = tok
+                            stopped |= tok == stop_token
+                        with tracing.span("decode.forward"):
+                            if graph is None:
+                                logits, cache = decode_step(compute, cfg, tok, pos, cache)
+                                last_logits = logits.float()
+                            else:  # the graph advances its own position
+                                graph.post_stopped(stopped)
+                                last_logits = graph.step(tok)
+                        pos += 1
+                        with tracing.span("decode.stop_read"):
+                            done = bool(stopped.all()) if graph is None else graph.read_stopped()
 
-    with tracing.span("decode"):
-        # `stopped.all()` is read on the host before the first step and at
-        # the end of each: one device sync per step, the price of the early
-        # exit
-        with tracing.span("decode.stop_read"):
-            done = bool(stopped.all())
-        pos = prefill_len
-        for width in stage_widths:
-            while pos < width and not done:
-                with tracing.span("decode.step"):
-                    with tracing.span("decode.sample"):
-                        sampled = sample_top_k(generator, last_logits, k, inv_temp, top_p=top_p)
-                        sampled = torch.where(stopped, pad_token, sampled)
-                        tok = torch.where(pos < prefix_len, tokens[:, pos], sampled)
-                        tokens[:, pos] = tok
-                        stopped |= tok == stop_token
-                    with tracing.span("decode.forward"):
-                        logits, cache = decode_step(params, cfg, tok, pos, cache)
-                        last_logits = logits.float()
-                    pos += 1
-                    with tracing.span("decode.stop_read"):
-                        done = bool(stopped.all())
-
-        # force [STOP] at the last written position for rows that never stopped
-        last = max(pos - 1, 0)
-        tokens[:, last] = torch.where(stopped, tokens[:, last], stop_token)
+            # force [STOP] at the last written position for rows that never stopped
+            last = max(pos - 1, 0)
+            tokens[:, last] = torch.where(stopped, tokens[:, last], stop_token)
+    if graph is not None:
+        tracing.count("decode.graph_steps", pos - prefill_len)
     if tracing.started():
         tracing.count("decode.row_steps", b * (pos - prefill_len))
         tracing.count("decode.live_row_steps",

@@ -11,7 +11,9 @@ weights in PyTorch's (out, in) layout; the functions below take it as
 Attention goes through the port's kernels: K2 (flash causal attention)
 for every full-sequence pass, encode and prefill alike, or K5f (the
 short-sequence kernel, T <= 128) under prefill_kernel="packed"; and K1
-(masked read decode attention) for every decode step of `decode_step`; the
+(masked read decode attention) for every decode step of `decode_step`
+and of `decode_step_at` (the step at a position held on the device, the
+form models/decode_graph.py captures once as a CUDA graph); the
 continuous-batching engine's steps with per-row positions
 (`decode_step_ring`, `decode_step_ragged`) read their caches through the
 plain PyTorch forms of ops/attention.py, as coati_tpu's do through XLA.
@@ -432,6 +434,21 @@ def _write_kv(cache: KVCache, layer: int, positions, k: torch.Tensor, v: torch.T
         cache.data[layer, 1, :, positions] = v.to(cache.data.dtype)
 
 
+def _write_kv_at(cache: KVCache, layer: int, index: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor) -> None:
+    """_write_kv of k, v (B, H, Dh) at the position held in `index`, a
+    one-element int64 tensor on the cache's device, read there alone (an
+    index_copy_ along the position axis; no host read)."""
+    if cache.scale is not None:
+        for i, x in ((0, k), (1, v)):
+            x8, xs = quantize_kv(x)
+            cache.data[layer, i].index_copy_(1, index, x8[:, None])
+            cache.scale[layer, i].index_copy_(1, index, xs.to(cache.scale.dtype)[:, None])
+    else:
+        cache.data[layer, 0].index_copy_(1, index, k.to(cache.data.dtype)[:, None])
+        cache.data[layer, 1].index_copy_(1, index, v.to(cache.data.dtype)[:, None])
+
+
 def prefill(
     params: SmilesTransformer,
     cfg: TransformerConfig,
@@ -485,6 +502,44 @@ def decode_step(
         return decode_attention(q, cache.data[layer, 0], cache.data[layer, 1], pos)
 
     return _decode_one(params, cfg, token, cos_t[pos], sin_t[pos], attend), cache
+
+
+def rotary_at(tables: tuple, index: torch.Tensor) -> tuple:
+    """The rows (Dh,) of the rotary tables (cos, sin) at the position held
+    in `index`, a one-element int64 tensor on their device."""
+    return tuple(t.index_select(0, index)[0] for t in tables)
+
+
+def decode_step_at(
+    params: SmilesTransformer,
+    cfg: TransformerConfig,
+    token: torch.Tensor,
+    pos: torch.Tensor,
+    cache: KVCache,
+    tables: tuple,
+):
+    """decode_step at the position held in `pos`, a one-element int32
+    tensor on the token's device, which no host code reads: the K/V write
+    indexes the cache by it, the rotary row is gathered by it from
+    `tables` (the (cos, sin) of `_rotary`, built once by the caller), and
+    K1 reads it on the card (with its groups chosen for the cache's last
+    position). The same logits as decode_step at that position, so one
+    captured CUDA graph of it serves every step (models/decode_graph.py).
+    Returns (logits (B, V), cache)."""
+    _check_kernel_fields(cfg)
+    index = pos.long()
+    cos1, sin1 = rotary_at(tables, index)
+
+    def attend(layer, q, k, v):
+        _write_kv_at(cache, layer, index, k, v)
+        if cache.scale is not None:
+            return decode_attention_quant(
+                q, cache.data[layer, 0], cache.scale[layer, 0],
+                cache.data[layer, 1], cache.scale[layer, 1], pos,
+            )
+        return decode_attention(q, cache.data[layer, 0], cache.data[layer, 1], pos)
+
+    return _decode_one(params, cfg, token, cos1, sin1, attend), cache
 
 
 def _decode_one(params: SmilesTransformer, cfg: TransformerConfig, token, cos1, sin1, attend):

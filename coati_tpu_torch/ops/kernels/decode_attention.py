@@ -18,21 +18,32 @@ per-(token, head) scales. For CPU tensors they run the plain versions
 (ops/attention.py); for CUDA tensors they launch the kernel or raise, with
 no fallback: an int8 cache given to `decode_attention`, or one without
 scales, is an error, never a silent detour. Each wrapper counts its
-launches in `.launches`.
+launches in `.launches`. A launch made while the thread's stream is being
+captured into a CUDA graph runs nothing on the card then: it is counted in
+the recording of `recording_launches` instead, whose owner adds those
+counts at each replay (models/decode_graph.py), and nowhere outside one.
 
 The cache slice of one layer, `data[l, 0]` of the (L, 2, B, T, H, Dh)
 cache, is a contiguous (B, T, H, Dh) view and is read in place; q and
-the cache slices must start on a 16-byte boundary. `pos` is a host int
-passed by value, so a launch needs no device sync. The kernel has bodies
-for Dh 16 and 32; a head below 32 of another width (24) is read from
-copies zero-padded to the next, at the cost of a copy of the cache a
-launch.
+the cache slices must start on a 16-byte boundary. `pos` is either a
+host int, passed by value, so a launch needs no device sync; or a
+one-element int32 tensor on the query's device, which the kernel reads
+when it runs (the C entry `decode_attention_at`), so that one captured
+CUDA graph replays the step at every position (models/decode_graph.py).
+The host int picks the row's groups G for pos itself; a tensor position
+takes them for the cache's last position, and groups past pos merge as
+empty states: where G is the same, both forms give the same bits.
+`groups(...)` reports G. The kernel has bodies for Dh 16 and 32; a head
+below 32 of another width (24) is read from copies zero-padded to the
+next, at the cost of a copy of the cache a launch.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
+import threading
 from typing import Optional
 
 import torch
@@ -44,13 +55,59 @@ from coati_tpu_torch.ops.kernels.flash_attention import pad_heads, padded_width
 HEAD_DIMS = (16, 32)  # a head's vector is whole 16-byte loads, unrolled in registers
 DTYPES = (torch.float32, torch.bfloat16)
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+_AT_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+                + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
+_GROUPS_ARGTYPES = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
+_recording = threading.local()  # .counts: {wrapper: launches} of the graph this thread captures
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Yields a dict that counts, by wrapper, the launches a CUDA graph
+    captured on this thread inside the block records; they go to it and not
+    to `.launches`, since a capture runs nothing and each replay runs them
+    all."""
+    saved = getattr(_recording, "counts", None)
+    _recording.counts = counts = {}
+    try:
+        yield counts
+    finally:
+        _recording.counts = saved
+
+
+def _count(wrapper) -> None:
+    """One launch of `wrapper`: in its `.launches`, or, while this thread's
+    stream is being captured, in the capture's recording (if any)."""
+    if torch.cuda.is_current_stream_capturing():
+        counts = getattr(_recording, "counts", None)
+        if counts is not None:
+            counts[wrapper] = counts.get(wrapper, 0) + 1
+        return
+    wrapper.launches += 1
+
+
+def _entry(name: str, argtypes):
+    fn = getattr(build.load("decode_attention"), name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _library():
-    fn = build.load("decode_attention").decode_attention
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
+    return _entry("decode_attention", _ARGTYPES)
+
+
+def groups(batch: int, heads: int, head_dim: int, pos: int, q_dtype: torch.dtype,
+           kv_dtype: torch.dtype, scale_dtype: torch.dtype = torch.float32) -> int:
+    """The groups G a row takes at position `pos` in the form (query, cache
+    and scale dtypes) and shape given, on the current card."""
+    out = ctypes.c_int(0)
+    err = _entry("decode_attention_groups", _GROUPS_ARGTYPES)(
+        batch, heads, head_dim, pos, build.DTYPE_CODES[q_dtype], build.DTYPE_CODES[kv_dtype],
+        build.DTYPE_CODES[scale_dtype], ctypes.byref(out),
+    )
+    build.check(err, "decode_attention_groups")
+    return out.value
 
 
 def _check_common(q1: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos) -> None:
@@ -75,7 +132,13 @@ def _check_common(q1: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos) -> No
                          "at most 1024")
     if not all(x.is_contiguous() for x in (q1, k, v)):
         raise ValueError("decode attention: q1 and the cache slices must be contiguous")
-    if not isinstance(pos, int) or not 0 <= pos < t:
+    if isinstance(pos, torch.Tensor):
+        if pos.shape != (1,) or pos.dtype != torch.int32 or pos.device != q1.device:
+            raise ValueError(
+                "decode attention: a position tensor must be one int32 on the query's device, "
+                f"got {tuple(pos.shape)} {pos.dtype} on {pos.device}"
+            )
+    elif not isinstance(pos, int) or not 0 <= pos < t:
         raise ValueError(f"decode attention: pos must be a host int in [0, {t}), got {pos!r}")
     check_aligned(q1, k, v)
 
@@ -92,10 +155,12 @@ def check_aligned(*tensors: torch.Tensor) -> None:
             )
 
 
-def _launch(q1, k, v, ks: Optional[torch.Tensor], vs: Optional[torch.Tensor], pos: int,
+def _launch(q1, k, v, ks: Optional[torch.Tensor], vs: Optional[torch.Tensor], pos,
             scale_code: int):
-    """The kernel on checked tensors; a head dim without a body runs on
-    copies zero-padded to the next (flash_attention.padded_width: for an
+    """The kernel on checked tensors, through the entry that takes `pos`
+    (a host int, or a one-element int32 tensor read on the card with G
+    chosen for the cache's last position); a head dim without a body runs
+    on copies zero-padded to the next (flash_attention.padded_width: for an
     int8 cache too, whose per-(token, head) scales the zeros leave as they
     are), the scale kept at the unpadded Dh's."""
     dh = q1.shape[-1]
@@ -104,21 +169,29 @@ def _launch(q1, k, v, ks: Optional[torch.Tensor], vs: Optional[torch.Tensor], po
         q1, k, v = pad_heads(width, q1, k, v)
     b, t, h, w = k.shape
     out = torch.empty_like(q1)
-    err = _library()(
+    args = [
         q1.data_ptr(), k.data_ptr(), v.data_ptr(),
         ks.data_ptr() if ks is not None else None,
         vs.data_ptr() if vs is not None else None,
-        out.data_ptr(), b, t, h, w, pos,
-        build.DTYPE_CODES[q1.dtype], build.DTYPE_CODES[k.dtype], scale_code,
+        out.data_ptr(), b, t, h, w,
+    ]
+    if isinstance(pos, torch.Tensor):
+        fn, args = _entry("decode_attention_at", _AT_ARGTYPES), args + [pos.data_ptr(), t - 1]
+    else:
+        fn, args = _library(), args + [pos]
+    err = fn(
+        *args, build.DTYPE_CODES[q1.dtype], build.DTYPE_CODES[k.dtype], scale_code,
         1.0 / math.sqrt(dh), build.stream_handle(q1.device),
     )
     build.check(err, "decode_attention kernel")
     return out[..., :dh].contiguous() if width else out
 
 
-def decode_attention(q1: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, pos: int) -> torch.Tensor:
+def decode_attention(q1: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     pos) -> torch.Tensor:
     """q1 (B, H, Dh) attends to k/v caches (B, T, H, Dh) of its dtype over
-    positions [0, pos]. Returns (B, H, Dh)."""
+    positions [0, pos], `pos` a host int or a one-element int32 tensor on
+    the query's device. Returns (B, H, Dh)."""
     if q1.device.type == "cpu":
         return plain.decode_attention(q1, k_cache, v_cache, pos)
     _check_common(q1, k_cache, v_cache, pos)
@@ -128,7 +201,7 @@ def decode_attention(q1: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Ten
             f"{k_cache.dtype}/{v_cache.dtype} (an int8 cache goes to decode_attention_quant)"
         )
     out = _launch(q1, k_cache, v_cache, None, None, pos, 0)
-    decode_attention.launches += 1
+    _count(decode_attention)
     return out
 
 
@@ -138,11 +211,11 @@ def decode_attention_quant(
     k_scale: torch.Tensor,
     v_data: torch.Tensor,
     v_scale: torch.Tensor,
-    pos: int,
+    pos,
 ) -> torch.Tensor:
     """decode_attention over an int8 cache (B, T, H, Dh) with per-(token,
-    head) scales (B, T, H), float32 or bfloat16. Returns (B, H, Dh) in
-    q1's dtype."""
+    head) scales (B, T, H), float32 or bfloat16; `pos` as there. Returns
+    (B, H, Dh) in q1's dtype."""
     if q1.device.type == "cpu":
         return plain.decode_attention_quant(q1, k_data, k_scale, v_data, v_scale, pos)
     _check_common(q1, k_data, v_data, pos)
@@ -165,7 +238,7 @@ def decode_attention_quant(
     if not (k_scale.is_contiguous() and v_scale.is_contiguous()):
         raise ValueError("decode_attention_quant: the scales must be contiguous")
     out = _launch(q1, k_data, v_data, k_scale, v_scale, pos, build.DTYPE_CODES[k_scale.dtype])
-    decode_attention_quant.launches += 1
+    _count(decode_attention_quant)
     return out
 
 

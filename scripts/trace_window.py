@@ -17,8 +17,10 @@ counters (the `twin_` keys):
 
   * round trips and embedding: `tokenize_share` (the `tokenize` spans over
     the window), `live_row_share` (`decode.live_row_steps` over
-    `decode.row_steps`), `stop_wait_share` (`decode.stop_read` over
-    `decode`);
+    `decode.row_steps`), `graph_share` (decode steps replayed from a
+    captured CUDA graph, `decode.graph_steps`, over the `decode.step`
+    spans; `graph_captures` beside it), `stop_wait_share`
+    (`decode.stop_read` over `decode`);
   * training: `xform_share`, `batch_wait_share`, `device_wait_share`
     (the `train.xform`, `train.batch`, `train.device_wait` spans, each cut
     to the window, over the window).
@@ -76,6 +78,9 @@ def window_readings(res: dict, snap: dict, to_epoch: float) -> dict:
         out["live_row_share"] = _share(counters.get("decode.live_row_steps", 0),
                                        counters.get("decode.row_steps", 0))
         out["twin_live_row_share"] = _share(record["live_row_steps"], record["row_steps"])
+        out["graph_share"] = _share(counters.get("decode.graph_steps", 0),
+                                    spans.get("decode.step", {}).get("count", 0))
+        out["graph_captures"] = counters.get("decode.graph_captures", 0)
         out["stop_wait_share"] = _share(seconds.get("decode.stop_read", 0.0), seconds["decode"])
     return out
 

@@ -628,6 +628,69 @@ def test_k1_emulation_matches_plain_and_pallas(form, pos, dh):
             _close(mine, tpu, atol=2.0**-7 * scale, rtol=0)
 
 
+@pytest.mark.parametrize("form", K1_FORMS, ids=["-".join(f) for f in K1_FORMS])
+@pytest.mark.parametrize("pos", [0, 2, 21])
+def test_k1_emulation_with_the_device_position_forms_groups_matches_plain(form, pos):
+    """K1's entry that reads pos on the card (decode_attention_at) takes
+    its groups for the cache's last position, so at an early pos most
+    groups have no position: they take no items and merge as empty states
+    (m = -1e30, l = 0, acc = 0). Emulated at those groups, the kernel's
+    arithmetic still matches the plain version; where the host entry's
+    groups are the same (pos 21 at batch 1024 here), the two emulations
+    are the same bits."""
+    q_name, kv = form
+    q_dtype = getattr(torch, q_name)
+    b, h, dh = 3, 16, 16
+    q = _t(_normal(50, b, h, dh)).to(q_dtype)
+    k, v = _t(_normal(51, b, T_CACHE, h, dh)), _t(_normal(52, b, T_CACHE, h, dh))
+    if kv.startswith("int8"):
+        scale_dtype = getattr(torch, kv[5:])
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        ks, vs = ks.to(scale_dtype), vs.to(scale_dtype)
+        ref = tatt.decode_attention_quant(q, k, ks, v, vs, pos)
+    else:
+        k, v, ks, vs = k.to(q_dtype), v.to(q_dtype), None, None
+        ref = tatt.decode_attention(q, k, v, pos)
+    span = h * dh * k.element_size() // 16
+    resident = 132 * 2 * 256
+    for batch in (b, 1024):
+        at_last = _k1_groups(batch, span, T_CACHE - 1, resident)
+        at_pos = _k1_groups(batch, span, pos, resident)
+        assert at_last >= at_pos
+        mine = _emulate_k1(q, k, v, ks, vs, pos, at_last)
+        if q_dtype == torch.float32:
+            _close(mine, ref)
+        else:
+            scale = float(ref.float().abs().max())
+            assert float((mine.float() - ref.float()).abs().max()) <= 0.5 * 2 * 2.0**-7 * scale
+        if at_last == at_pos:
+            assert torch.equal(mine, _emulate_k1(q, k, v, ks, vs, pos, at_pos))
+    assert _k1_groups(1024, span, 21, resident) == _k1_groups(1024, span, T_CACHE - 1, resident)
+
+
+@pytest.mark.parametrize("cache", ["float32", "bfloat16", "int8/float32", "int8/bfloat16"])
+def test_decode_attention_at_a_position_tensor_equals_the_int(cache):
+    """The plain decode attention that K1 is held to, and K1's wrappers
+    (which run it for CPU tensors), give the same bits for a position held
+    in a one-element int32 tensor, the form a captured decode graph passes,
+    as for the host int."""
+    b, h, dh = 2, 4, 16
+    q = _t(_normal(60, b, h, dh))
+    k, v = _t(_normal(61, b, T_CACHE, h, dh)), _t(_normal(62, b, T_CACHE, h, dh))
+    for pos in (0, 9, T_CACHE - 1):
+        at = torch.tensor([pos], dtype=torch.int32)
+        if cache.startswith("int8"):
+            (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
+            ks, vs = ks.to(getattr(torch, cache[5:])), vs.to(getattr(torch, cache[5:]))
+            for fn in (tatt.decode_attention_quant, kdecode.decode_attention_quant):
+                assert torch.equal(fn(q, k8, ks, v8, vs, at), fn(q, k8, ks, v8, vs, pos))
+        else:
+            dtype = getattr(torch, cache)
+            qd, kd, vd = q.to(dtype), k.to(dtype), v.to(dtype)
+            for fn in (tatt.decode_attention, kdecode.decode_attention):
+                assert torch.equal(fn(qd, kd, vd, at), fn(qd, kd, vd, pos))
+
+
 def test_decode_wrappers_refuse_unaligned_queries_and_caches():
     """The kernel reads q and the cache 16 bytes at a time: a base address
     off a 16-byte boundary is refused, not read another way."""

@@ -161,6 +161,23 @@ def test_round_trip_keeps_one_root_per_call_its_steps_and_live_rows(monkeypatch)
     assert snap["spans"]["tokenize"]["count"] == 2  # the prefixes, one a call
 
 
+def test_decode_graph_counters_read_zero_on_the_cpu_path():
+    """decode.graph_captures and decode.graph_steps count the decode
+    graph's captures and replays (models/decode_graph.py), which run on the
+    card alone: a round trip on the CPU decodes eagerly, so both read zero
+    (absent) while its steps are counted, and no capture span opens."""
+    model, tok = _small_model(seed=4)
+    tracing.start()
+    model.smiles_to_2d_batch(_rows(tok), tok, k=5, inv_temp=1.0)
+    tracing.stop()
+    snap = tracing.snapshot()
+    counters = snap["counters"]
+    assert counters.get("decode.graph_captures", 0) == 0
+    assert counters.get("decode.graph_steps", 0) == 0
+    assert counters["decode.row_steps"] == len(SMILES) * snap["spans"]["decode.step"]["count"] > 0
+    assert "decode.capture" not in snap["spans"]
+
+
 def test_nested_public_calls_share_one_request_and_count_rows_once():
     model, tok = _small_model()
     atoms = np.array([[6, 6, 8, 0], [7, 6, 0, 0]])

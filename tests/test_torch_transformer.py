@@ -200,9 +200,10 @@ def test_packed_prefill_kernel_matches_auto_and_jax_packed(t, monkeypatch):
 @pytest.mark.parametrize("kv_dtype", ["compute", "int8"])
 @pytest.mark.parametrize("n_layer,n_embd", [(2, 64), (3, 128)])
 def test_prefill_and_decode_steps_match_jax(n_layer, n_embd, kv_dtype):
-    """Prefill over a 4-token prefix with injection, then 5 decode steps;
-    logits and the whole cache compared after each step. The int8 cache is
-    compared bit for bit, its scales at the shared tolerance."""
+    """Prefill over a 4-token prefix with injection, then 5 decode steps,
+    by `decode_step` at the host int and by `decode_step_at` at a position
+    tensor; logits and the whole cache compared after each step. The int8
+    cache is compared bit for bit, its scales at the shared tolerance."""
     jparams, jcfg, model, tcfg = _pair(n_layer, n_embd, kv_dtype=kv_dtype, seed=3)
     b, p, width = 3, 4, 16
     toks = _tokens(b, p + 5, tcfg.n_tok, seed=4)
@@ -215,7 +216,7 @@ def test_prefill_and_decode_steps_match_jax(n_layer, n_embd, kv_dtype):
     h, cache = ttr.prefill(model, tcfg, torch.tensor(toks[:, :p]), torch.tensor(inj), UNK, cache)
     _close(h, jh)
 
-    def check_cache():
+    def check_cache(cache):
         if kv_dtype == "int8":
             assert cache.data.dtype == torch.int8
             np.testing.assert_array_equal(cache.data.numpy(), np.asarray(jcache.data))
@@ -224,10 +225,361 @@ def test_prefill_and_decode_steps_match_jax(n_layer, n_embd, kv_dtype):
             assert cache.scale is None
             _close(cache.data, jcache.data)
 
-    check_cache()
+    check_cache(cache)
+    # the step the decode graph captures, at a position held in a tensor,
+    # over its own copy of the prefilled cache
+    cache_at = ttr.KVCache(cache.data.clone(), None if cache.scale is None else cache.scale.clone())
+    tables = ttr._rotary(tcfg, torch.device("cpu"))
+    at = torch.tensor([p], dtype=torch.int32)
     for pos in range(p, p + 5):
         tok = toks[:, pos]
         jlogits, jcache = jtr.decode_step(jparams, jcfg, jnp.asarray(tok), jnp.asarray(pos), jcache)
         logits, cache = ttr.decode_step(model, tcfg, torch.tensor(tok), pos, cache)
         _close(logits, jlogits)
-        check_cache()
+        check_cache(cache)
+        logits_at, cache_at = ttr.decode_step_at(model, tcfg, torch.tensor(tok), at, cache_at,
+                                                 tables)
+        at += 1
+        _close(logits_at, jlogits)
+        check_cache(cache_at)
+
+
+# ------------------------------------- the decode step at a device position
+#
+# models/decode_graph.py captures `decode_step_at` once as a CUDA graph: the
+# position lives in a one-element tensor that no host code reads. On the CPU
+# every piece of it must give the bits of the step at the host int.
+
+CACHE_FORMS = [("float32", "compute", "float32"), ("bfloat16", "compute", "float32"),
+               ("float32", "int8", "float32"), ("bfloat16", "int8", "bfloat16")]
+
+
+@pytest.mark.parametrize("dtype,kv_dtype,scale_dtype", CACHE_FORMS,
+                         ids=["-".join(f) for f in CACHE_FORMS])
+def test_kv_write_at_a_position_tensor_equals_the_int_write(dtype, kv_dtype, scale_dtype):
+    tcfg = ttr.TransformerConfig(n_layer=2, n_embd=64, n_head=4, n_seq=16, dtype=dtype,
+                                 kv_dtype=kv_dtype, kv_scale_dtype=scale_dtype)
+    gen = torch.Generator().manual_seed(0)
+    by_int = ttr.make_empty_cache(tcfg, 3, width=16)
+    by_tensor = ttr.make_empty_cache(tcfg, 3, width=16)
+    assert (by_int.scale is not None) == (kv_dtype == "int8")
+    for layer, pos in ((0, 0), (1, 7), (1, 15), (0, 7)):
+        k = torch.randn(3, 4, 16, generator=gen).to(tcfg.compute_dtype)
+        v = torch.randn(3, 4, 16, generator=gen).to(tcfg.compute_dtype)
+        ttr._write_kv(by_int, layer, pos, k, v)
+        ttr._write_kv_at(by_tensor, layer, torch.tensor([pos]), k, v)
+        assert torch.equal(by_int.data, by_tensor.data)
+        if kv_dtype == "int8":
+            assert torch.equal(by_int.scale, by_tensor.scale)
+    assert by_int.data.abs().sum() > 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rotary_row_gathered_at_a_position_tensor(dtype):
+    tcfg = ttr.TransformerConfig(n_layer=1, n_embd=64, n_head=4, n_seq=48, dtype=dtype)
+    tables = ttr._rotary(tcfg, torch.device("cpu"))
+    for pos in (0, 5, 47):
+        cos1, sin1 = ttr.rotary_at(tables, torch.tensor([pos]))
+        assert cos1.shape == (16,) and cos1.dtype == tcfg.compute_dtype
+        assert torch.equal(cos1, tables[0][pos]) and torch.equal(sin1, tables[1][pos])
+
+
+@pytest.mark.parametrize("kv_dtype", ["compute", "int8"])
+def test_decode_step_at_a_position_tensor_equals_decode_step(kv_dtype):
+    """Five steps after a prefill, by position tensor and by host int: the
+    same logits and the same cache, bit for bit."""
+    _, _, model, tcfg = _pair(2, 64, kv_dtype=kv_dtype, seed=3)
+    b, p, width = 3, 4, 16
+    toks = torch.tensor(_tokens(b, p + 5, tcfg.n_tok, seed=4))
+    by_int = ttr.make_empty_cache(tcfg, b, width=width)
+    by_tensor = ttr.make_empty_cache(tcfg, b, width=width)
+    ttr.prefill(model, tcfg, toks[:, :p], cache=by_int)
+    ttr.prefill(model, tcfg, toks[:, :p], cache=by_tensor)
+    tables = ttr._rotary(tcfg, torch.device("cpu"))
+    at = torch.tensor([p], dtype=torch.int32)
+    for pos in range(p, p + 5):
+        ref, by_int = ttr.decode_step(model, tcfg, toks[:, pos], pos, by_int)
+        mine, by_tensor = ttr.decode_step_at(model, tcfg, toks[:, pos], at, by_tensor, tables)
+        at += 1
+        assert torch.equal(mine, ref)
+        assert torch.equal(by_tensor.data, by_int.data)
+        if kv_dtype == "int8":
+            assert torch.equal(by_tensor.scale, by_int.scale)
+
+
+def _eager_generate(model, cfg, generator, tokens, prefix_len, prefill_len, total_len, k,
+                    inv_temp):
+    """generate_tokens' loop spelled out with the eager decode_step, as the
+    sampler ran it before decode graphs (and still runs it off the card)."""
+    from coati_tpu_torch.models.sampler import sample_top_k
+
+    tokens = tokens.clone()
+    cache = ttr.make_empty_cache(cfg, tokens.shape[0], width=total_len)
+    hidden, cache = ttr.prefill(model, cfg, tokens[:, :prefill_len], cache=cache)
+    last = ttr.linear(hidden[:, -1], model.lm_head.weight).float()
+    stopped = (tokens[:, :prefill_len] == STOP).any(1)
+    pos = prefill_len
+    while pos < total_len and not bool(stopped.all()):
+        sampled = torch.where(stopped, 0, sample_top_k(generator, last, k, inv_temp))
+        tok = torch.where(pos < prefix_len, tokens[:, pos], sampled)
+        tokens[:, pos] = tok
+        stopped |= tok == STOP
+        logits, cache = ttr.decode_step(model, cfg, tok, pos, cache)
+        last = logits.float()
+        pos += 1
+    tokens[:, pos - 1] = torch.where(stopped, tokens[:, pos - 1], STOP)
+    return tokens
+
+
+@pytest.mark.parametrize("kv_dtype", ["compute", "int8"])
+def test_generate_tokens_on_the_cpu_keeps_the_eager_loops_tokens(kv_dtype, monkeypatch):
+    """On CPU tensors no graph is captured, and generate_tokens gives the
+    eager loop's tokens for one generator seed, sampled (k 5) and with
+    rows behind prefixes of different lengths."""
+    from coati_tpu_torch.models import decode_graph
+    from coati_tpu_torch.models.sampler import generate_tokens
+
+    def no_capture(*args, **kwargs):
+        raise AssertionError("a decode graph was captured on the CPU")
+
+    monkeypatch.setattr(decode_graph, "StepGraph", no_capture)
+    _, _, model, tcfg = _pair(2, 64, kv_dtype=kv_dtype, seed=5)
+    b, total = 4, 24
+    tokens = torch.zeros(b, total, dtype=torch.long)
+    tokens[:, :5] = torch.tensor(_tokens(b, 5, tcfg.n_tok, seed=6)) % 30 + 3
+    lens = torch.tensor([3, 5, 3, 4])
+    for k in (1, 5):
+        mine = generate_tokens(model, tcfg, torch.Generator().manual_seed(11), tokens, lens,
+                               prefill_len=3, total_len=total, stop_token=STOP, k=k,
+                               inv_temp=1.0)
+        ref = _eager_generate(model, tcfg, torch.Generator().manual_seed(11), tokens, lens, 3,
+                              total, k, 1.0)
+        assert torch.equal(mine, ref)
+        assert torch.equal(mine[1, :5], tokens[1, :5])
+
+
+def test_the_decode_graph_engages_only_for_cuda_weights_in_the_compute_dtype():
+    """The rule of decode_graph.eligible: a CUDA device, weights that
+    cast_floats hands back as they are (so the same tensors from call to
+    call), and no `eager()` block open (in any thread); CPU tensors,
+    weights cast anew on each call, or a call inside such a block take the
+    eager step."""
+    import threading
+
+    from coati_tpu_torch.models import decode_graph
+    from coati_tpu_torch.ops.layers import cast_floats
+
+    cuda, cpu = torch.device("cuda", 0), torch.device("cpu")
+    _, _, model, tcfg = _pair(2, 64)
+    assert cast_floats(model, torch.float32) is model
+    assert decode_graph.eligible(model, model, cuda)
+    assert not decode_graph.eligible(model, model, cpu)
+    recast = cast_floats(model, torch.bfloat16)  # float32 masters under bf16 compute
+    assert recast is not model and cast_floats(model, torch.bfloat16) is not recast
+    assert not decode_graph.eligible(model, recast, cuda)
+    assert cast_floats(recast, torch.bfloat16) is recast  # a handle's compute copy
+    assert decode_graph.eligible(recast, recast, cuda)
+    seen = []
+    with decode_graph.eager():
+        with decode_graph.eager():
+            assert not decode_graph.eligible(recast, recast, cuda)
+        other = threading.Thread(target=lambda: seen.append(
+            decode_graph.eligible(recast, recast, cuda)))
+        other.start()
+        other.join(timeout=30)
+        assert not decode_graph.eligible(recast, recast, cuda)
+    assert seen == [False] and decode_graph.eligible(recast, recast, cuda)
+
+
+def _stand_in_captures(monkeypatch):
+    """decode_graph with a stand-in for the capture, which needs a card, and
+    no shape met yet; returns the list of stand-ins made."""
+    import threading
+    from collections import OrderedDict
+
+    from coati_tpu_torch.models import decode_graph
+
+    made = []
+
+    class Captured:
+        current = decode_graph.StepGraph.current
+
+        def __init__(self, params, cfg, batch, width, device):
+            self.lock, self.batch, self.holder = threading.Lock(), batch, None
+            self.layout = decode_graph._layout(params)
+            made.append(self)
+
+    monkeypatch.setattr(decode_graph, "StepGraph", Captured)
+    monkeypatch.setattr(decode_graph, "_seen", OrderedDict())
+    return made
+
+
+def _acquire_once(model, tcfg, batch):
+    """A call's graph of the shape (None where it runs eagerly), given back."""
+    from coati_tpu_torch.models import decode_graph
+
+    graph = decode_graph._acquire(model, tcfg, batch, 16, "cuda:0")
+    if graph is not None:
+        graph.lock.release()
+    return graph
+
+
+def test_kept_decode_graphs_are_bounded_reused_and_freed_with_the_weights(monkeypatch):
+    """decode_graph keeps at most MAX_SHAPES graphs a weights module, the
+    least recently used going first; hands a held graph to no second call;
+    captures again when a weight tensor is replaced; and drops them all
+    with the module."""
+    import gc
+    import weakref
+
+    from torch import nn
+
+    from coati_tpu_torch.models import decode_graph
+
+    made = _stand_in_captures(monkeypatch)
+    _, _, model, tcfg = _pair(2, 64)
+    n = decode_graph.MAX_SHAPES
+
+    def acquire(batch):
+        return _acquire_once(model, tcfg, batch)
+
+    assert [acquire(b) for b in range(1, n + 2)] == [None] * (n + 1)  # met once: eager
+    first = [acquire(b) for b in range(1, n + 1)]
+    assert acquire(1) is first[0] and len(made) == n  # kept, and now the most recent
+    acquire(n + 1)  # evicts batch 2, the least recently used
+    assert decode_graph.kept_shapes(model) == n
+    assert acquire(1) is first[0] and acquire(2) is not first[1]
+    held = decode_graph._acquire(model, tcfg, 1, 16, "cuda:0")
+    assert held is first[0] and decode_graph._acquire(model, tcfg, 1, 16, "cuda:0") is None
+    held.lock.release()
+    model.lm_head.weight = nn.Parameter(model.lm_head.weight.clone(), requires_grad=False)
+    again = acquire(1)
+    assert again is not first[0] and again.layout == decode_graph._layout(model)
+    before = len(decode_graph._graphs)
+    ref = weakref.ref(model)
+    del model, first, held, again
+    gc.collect()
+    assert ref() is None and len(decode_graph._graphs) == before - 1
+
+
+def test_a_decode_graph_is_captured_on_the_second_use_of_its_shape(monkeypatch):
+    """A key is captured on its second use by any module: the first call of
+    a shape runs eagerly, a second module's first call of a shape met before
+    captures; the last SEEN_SHAPES keys are remembered."""
+    from coati_tpu_torch.models import decode_graph
+
+    made = _stand_in_captures(monkeypatch)
+    monkeypatch.setattr(decode_graph, "SEEN_SHAPES", 3)
+    _, _, model, tcfg = _pair(2, 64)
+    _, _, other, _ = _pair(2, 64, seed=1)
+    assert _acquire_once(model, tcfg, 8) is None and made == []
+    assert _acquire_once(model, tcfg, 8) is made[0]
+    assert _acquire_once(other, tcfg, 8) is made[1]  # the shape, not the module, was met
+    for b in (1, 2, 3):
+        assert _acquire_once(model, tcfg, b) is None
+    assert _acquire_once(other, tcfg, 1) is made[2]  # still remembered
+    assert _acquire_once(other, tcfg, 9) is None
+    assert _acquire_once(other, tcfg, 2) is None  # forgotten: 2 was the oldest of 3
+    assert len(made) == 3
+
+
+def test_a_decode_graph_follows_its_weights_storage_not_their_objects(monkeypatch):
+    """A graph reads weights by address: `param.data = ...` keeps the
+    Parameter object but moves its storage, so the next call captures
+    anew; a weight changed in place stays where the graph reads it and
+    keeps the graph."""
+    made = _stand_in_captures(monkeypatch)
+    _, _, model, tcfg = _pair(2, 64)
+    _acquire_once(model, tcfg, 4)
+    graph = _acquire_once(model, tcfg, 4)
+    assert graph is made[0]
+    with torch.no_grad():
+        model.lm_head.weight.mul_(2.0)
+    assert _acquire_once(model, tcfg, 4) is graph
+    weight = kept = model.transformer.h[0].attn.c_attn.weight
+    weight.data = weight.data.clone()
+    assert weight is kept
+    again = _acquire_once(model, tcfg, 4)
+    assert again is not graph and len(made) == 2
+    assert _acquire_once(model, tcfg, 4) is again
+
+
+def test_k1_counts_a_captured_launch_at_each_replay(monkeypatch):
+    """K1's wrappers count a launch made while the stream is captured in
+    the capture's recording, not in `.launches`; a StepGraph's replay adds
+    exactly what its capture recorded; outside a recording a captured
+    launch is counted nowhere."""
+    from coati_tpu_torch.models import decode_graph
+    from coati_tpu_torch.ops.kernels import decode_attention as k1
+
+    capturing = [False]
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: capturing[0])
+    monkeypatch.setattr(k1.decode_attention, "launches", 0)
+    monkeypatch.setattr(k1.decode_attention_quant, "launches", 0)
+    k1._count(k1.decode_attention_quant)
+    assert k1.decode_attention_quant.launches == 1
+    capturing[0] = True
+    k1._count(k1.decode_attention_quant)  # no recording: counted nowhere
+    with k1.recording_launches() as recorded:
+        for _ in range(3):
+            k1._count(k1.decode_attention_quant)
+        k1._count(k1.decode_attention)
+    assert recorded == {k1.decode_attention_quant: 3, k1.decode_attention: 1}
+    assert (k1.decode_attention_quant.launches, k1.decode_attention.launches) == (1, 0)
+    capturing[0] = False
+
+    class Replayed:
+        replays = 0
+
+        def replay(self):
+            Replayed.replays += 1
+
+    step = object.__new__(decode_graph.StepGraph)
+    step.token, step.logits, step.graph = torch.zeros(2, dtype=torch.long), "logits", Replayed()
+    step.launches = recorded
+    for _ in range(5):
+        assert step.step(torch.ones(2, dtype=torch.long)) == "logits"
+    assert Replayed.replays == 5 and torch.equal(step.token, torch.ones(2, dtype=torch.long))
+    assert (k1.decode_attention_quant.launches, k1.decode_attention.launches) == (16, 5)
+
+
+def test_decode_graphs_are_held_by_one_call_at_a_time_under_threads(monkeypatch):
+    """Many threads take and give back graphs of a few shapes (a stand-in
+    for the capture): no graph is ever held by two at once, none is lost
+    while held, and at most MAX_SHAPES stay kept once all are given back."""
+    import sys
+    import threading
+
+    from coati_tpu_torch.models import decode_graph
+
+    _stand_in_captures(monkeypatch)
+    _, _, model, tcfg = _pair(2, 64)
+    clashes, taken = [], []
+
+    def work(i):
+        for j in range(150):
+            graph = decode_graph._acquire(model, tcfg, 1 + (i + j) % 6, 16, "cuda:0")
+            if graph is None:
+                continue  # held by another call: that call decodes eagerly
+            if graph.holder is not None:
+                clashes.append((i, j))
+            graph.holder = i
+            taken.append(1)
+            if graph.holder != i:
+                clashes.append((i, j))
+            graph.holder = None
+            graph.lock.release()
+
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        pool = [threading.Thread(target=work, args=(i,)) for i in range(12)]
+        for t in pool:
+            t.start()
+        for t in pool:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in pool)
+    finally:
+        sys.setswitchinterval(switch)
+    assert clashes == [] and len(taken) > 0
+    assert decode_graph.kept_shapes(model) <= decode_graph.MAX_SHAPES
