@@ -68,6 +68,16 @@ number is taken.
     by those launches, beside its bound and the same launches priced at
     pos 95. Every traced call lists the device time of each of the port's
     kernels by name.
+    mla_moe (after decode_graph; `python3 chip_smoke.py mla_moe` runs it
+    alone): DeepSeek-V2-Lite's block as the trunk. K6 (absorbed-MLA decode,
+    ops/kernels/mla_decode.py) against its plain version at B 1024, T 250,
+    pos 3 / 95 / 249 within 2 bf16 ulps of the output's scale, the same
+    bits over two launches and from the position read on the card, timed
+    beside its bound, the plain version and SDPA; the grouped expert
+    product against the per-expert loop (routed picks, and every pick on
+    one expert); a seeded model at the cell's widths, its round trip of
+    1,024 corpus SMILES graphed against eager: the same greedy and sampled
+    tokens and K6 launches.
     decode_graph: the decode step captured once as a CUDA graph and
     replayed each token (models/decode_graph.py). K1's form that reads pos
     on the card against its host-int form at every position of B 1024,
@@ -4378,6 +4388,178 @@ def _profile(fn, label, wall_s, top=12, annotations=()):
     return line
 
 
+
+# ------------------------------------------------------------- mla_moe
+
+
+def dsv2lite_config(dtype: str = "bfloat16"):
+    """COATI with DeepSeek-V2-Lite's block as its trunk, one chip's share of
+    an 8-way expert-parallel deployment (portbench/configs/coati_dsv2lite.json):
+    5 of 27 layers, experts 0-7 of 64, the mar vocabulary."""
+    from coati_tpu_torch.models.coati import CoatiConfig
+    from coati_tpu_torch.models.mla_moe import MlaMoeConfig
+
+    return CoatiConfig(n_layer_e3gnn=5, n_layer_xformer=5, n_hidden_xformer=2048, n_hidden_e3nn=256,
+                       n_embd_common=256, n_head=16, n_seq=250, n_tok=13603, dtype=dtype,
+                       mla=MlaMoeConfig(n_held=8, first_expert=0))
+
+
+def _mla_case(b, t, pos, gen):
+    """K6 against its plain version at one position, bf16: within 2 ulps of
+    the output's scale, the same bits over two launches and from the
+    position read on the card; timed beside its bound, the plain version
+    and SDPA over the same rows."""
+    from coati_tpu_torch.ops.kernels.mla_decode import mla_decode, mla_decode_plain
+
+    h, w, lat, scale = 16, 576, 512, 0.114721
+    q = torch.randn(b, h, w, generator=gen, device="cuda").to(torch.bfloat16)
+    cache = torch.randn(b, t, w, generator=gen, device="cuda").to(torch.bfloat16)
+    dev_pos = torch.tensor([pos], dtype=torch.int32, device="cuda")
+    out = mla_decode(q, cache, pos, scale)
+    again = mla_decode(q, cache, pos, scale)
+    on_card = mla_decode(q, cache, dev_pos, scale)
+    ref = mla_decode_plain(q, cache, pos, scale)
+    err = float((out.float() - ref.float()).abs().max())
+    tol = tolerance(ref, torch.bfloat16, 1e-5)
+    n_bytes = b * ((pos + 1) * w * 2 + h * w * 2 + h * lat * 2)
+    bound, by = bound_ms(n_bytes, 2.0 * b * h * (pos + 1) * (w + lat), torch.bfloat16)
+    k = cache[:, None, : pos + 1].expand(b, h, pos + 1, w)
+    v = cache[:, None, : pos + 1, :lat].expand(b, h, pos + 1, lat)
+    lib = lambda: torch.nn.functional.scaled_dot_product_attention(q[:, :, None], k, v, scale=scale)  # noqa: E731
+    line = {"phase": "mla_moe_k6", "shape": [b, t, h, w], "pos": pos, "max_abs_err": err,
+            "tolerance": tol, "repeat_equal": bool(torch.equal(out, again)),
+            "device_pos_equal": bool(torch.equal(out, on_card)),
+            "ms": time_ms(lambda: mla_decode(q, cache, pos, scale)),
+            "ms_device_pos": time_ms(lambda: mla_decode(q, cache, dev_pos, scale)),
+            "bound_ms": bound, "bound_by": by,
+            "plain_ms": time_ms(lambda: mla_decode_plain(q, cache, pos, scale), n=5),
+            "library_ms": time_ms(lib, n=10)}
+    emit(line)
+    check(err <= tol and line["repeat_equal"] and line["device_pos_equal"],
+          f"mla_moe K6 at pos {pos}: {line}")
+    return line
+
+
+def _grouped_case(label, x, experts, gen):
+    """The grouped expert product on the card against the per-expert loop,
+    at the published widths over 8 held experts."""
+    from coati_tpu_torch.ops import moe
+
+    d, w, n_held = 2048, 1408, 8
+    gu = (torch.rand(n_held, 2 * w, d, generator=gen, device="cuda") * 2 - 1).mul(d ** -0.5)
+    down = (torch.rand(n_held, d, w, generator=gen, device="cuda") * 2 - 1).mul(w ** -0.5)
+    gu, down = gu.to(torch.bfloat16), down.to(torch.bfloat16)
+    order, ends, held = moe.dispatch(experts, 0, n_held)
+    xs = x.index_select(0, order // experts.shape[1])
+    got = moe.grouped_swiglu(xs, ends, gu, down)
+    again = moe.grouped_swiglu(xs, ends, gu, down)
+    ref = moe.grouped_swiglu_plain(xs, ends, gu, down)
+    n = int(ends[-1])
+    err = float((got[:n].float() - ref[:n].float()).abs().max()) if n else 0.0
+    tol = tolerance(ref[:n], torch.bfloat16, 1e-5) if n else 0.0
+    pairs = n
+    active = int((torch.diff(ends.long(), prepend=ends.new_zeros(1).long()) > 0).sum())
+    n_bytes = active * 3 * d * w * 2 + pairs * (2 * d + 3 * w) * 2
+    bound, by = bound_ms(n_bytes, 6.0 * pairs * d * w, torch.bfloat16)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        moe.grouped_swiglu(xs, ends, gu, down)
+        torch.cuda.synchronize()
+    names = sorted({e.key[:160] for e in prof.key_averages() if e.device_type.name == "CUDA"})
+    line = {"phase": "mla_moe_experts", "case": label, "tokens": x.shape[0], "pairs_here": pairs,
+            "device_kernels": names,
+            "ends": ends.tolist(), "max_abs_err": err, "tolerance": tol,
+            "repeat_equal": bool(torch.equal(got[:n], again[:n])),
+            "ms": time_ms(lambda: moe.grouped_swiglu(xs, ends, gu, down)), "bound_ms": bound,
+            "bound_by": by, "plain_ms": time_ms(lambda: moe.grouped_swiglu_plain(xs, ends, gu, down),
+                                                n=5)}
+    emit(line)
+    check(err <= tol and line["repeat_equal"], f"mla_moe experts {label}: {line}")
+
+
+def phase_mla_moe():
+    """DeepSeek-V2-Lite's block as COATI's trunk on the card: K6 at B 1024,
+    T 250, pos 3 / 95 / 249 against its plain version; the grouped experts
+    against the per-expert loop (routed picks of 1,024 tokens, and a
+    dropless case with every pick on one held expert); then a seeded model
+    at the cell's widths, its round trip of 1,024 corpus SMILES graphed
+    against eager, greedy and sampled: the same tokens and K6 launches.
+    Returns (K6's launches on that path, its case at pos 249)."""
+    from coati_tpu_torch.common import tracing
+    from coati_tpu_torch.models import decode_graph
+    from coati_tpu_torch.models.api import COATI
+    from coati_tpu_torch.models.coati import CoatiModel
+    from coati_tpu_torch.ops import moe
+    from coati_tpu_torch.ops.kernels.mla_decode import mla_decode
+    from coati_tpu_torch.tokenizers import get_vocab
+    from coati_tpu_torch.tokenizers.trie_tokenizer import TrieTokenizer
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    k6 = {pos: _mla_case(1024, 250, pos, gen) for pos in (3, 95, 249)}
+    x = torch.randn(1024, 2048, generator=gen, device="cuda").to(torch.bfloat16)
+    router = (torch.rand(64, 2048, generator=gen, device="cuda") * 2 - 1).mul(2048 ** -0.5)
+    _, experts = moe.route(x, router.to(torch.bfloat16), 6)
+    _grouped_case("routed", x, experts, gen)
+    _grouped_case("one_expert", x, torch.full_like(experts, 64).index_fill_(1, torch.tensor(
+        [0], device="cuda"), 3), gen)
+
+    cfg = dsv2lite_config()
+    torch.manual_seed(21)
+    with torch.device("cuda"):
+        params = CoatiModel(cfg)
+    params.requires_grad_(False)
+    model = COATI(params, cfg, seed=0)
+    tok = TrieTokenizer(n_seq=cfg.n_seq, **get_vocab("mar"))
+    with gzip.open(ROOT / "corpora" / "chembl_synth_v1.smi.gz", "rt") as f:
+        smiles = [s.strip() for s in itertools.islice(f, 4096) if 0 < len(s.strip()) <= 200]
+    tokens = _tokens(tok, smiles[:1024], cfg.n_seq)
+    keep = _KeepRows(tok)
+
+    def run(k, seed):
+        model._generator.manual_seed(seed)
+        before = mla_decode.launches
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        model.smiles_to_2d_batch(tokens, keep, k=k, inv_temp=2.0)
+        torch.cuda.synchronize()
+        return keep.rows, time.perf_counter() - start, mla_decode.launches - before
+
+    torch.cuda.reset_peak_memory_stats()
+    with decode_graph.eager():
+        eager = {k: run(k, 5) for k in (1, 100)}
+    tracing.reset()
+    tracing.start()
+    setup = [run(1, 5) for _ in range(2)]
+    graphed = {k: run(k, 5) for k in (1, 100)}
+    totals = _tracer_totals()
+    counters = tracing.snapshot()["counters"]
+    tracing.stop()
+    timed = [run(100, 7 + i)[1] for i in range(3)]
+    start = time.perf_counter()
+    model.encode_tokens(tokens, tok)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - start
+    line = {"phase": "mla_moe_graph", "batch": len(tokens),
+            "greedy_equal": all(np.array_equal(r[0], eager[1][0]) for r in (*setup, graphed[1])),
+            "sampled_equal": bool(np.array_equal(graphed[100][0], eager[100][0])),
+            "k6_launches_graphed": {k: graphed[k][2] for k in graphed},
+            "k6_launches_eager": {k: eager[k][2] for k in eager}, "tracer": totals,
+            "pairs_here": counters.get("moe.pairs_here"), "moe_passes": counters.get("moe.passes"),
+            "peak_over_mean": counters.get("moe.peak_over_mean_ppm", 0) / 1e6
+            / max(counters.get("moe.passes", 1), 1),
+            "seconds_eager": [eager[k][1] for k in eager], "seconds_graphed": timed,
+            "encode_s": encode_s, "peak_allocated_bytes": torch.cuda.max_memory_allocated()}
+    emit(line)
+    check(line["greedy_equal"] and line["sampled_equal"],
+          "mla_moe: graphed tokens differ from the eager path's")
+    check(all(graphed[k][2] == eager[k][2] > 0 for k in graphed),
+          f"mla_moe: K6 launches {line['k6_launches_graphed']} graphed, "
+          f"{line['k6_launches_eager']} eager")
+    launches = sum(r[2] for r in (*eager.values(), *setup, *graphed.values()))
+    return {"mla_decode": launches}, k6[249]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only", file=sys.stderr)
@@ -4389,6 +4571,10 @@ def main() -> int:
 
     started = time.perf_counter()
     emit(host_cpu())
+    if sys.argv[1:] == ["mla_moe"]:  # that phase alone
+        phase_mla_moe()
+        emit({"ok": True, "phase": "mla_moe"})
+        return 0
 
     def lap(phase):
         emit({"phase": "elapsed", "after": phase, "seconds": time.perf_counter() - started})
@@ -4416,6 +4602,9 @@ def main() -> int:
     phase_decode_graph(model, tok)
     lap("decode_graph")
     del model
+    paths["mla_moe"], chosen["mla_decode"] = phase_mla_moe()
+    lap("mla_moe")
+    torch.cuda.empty_cache()
     paths["coati2"] = phase_coati2()
     lap("coati2")
     paths["train"] = phase_train()
@@ -4471,14 +4660,15 @@ def main() -> int:
         "egnn_messages_backward": ("egnn_messages_bwd.cu", "egnn_messages.py:329"),
         "packed_causal_attention_backward": ("packed_attention_bwd.cu",
                                              "packed_attention.py:282"),
+        "mla_decode": ("mla_decode.cu", None),  # K6: the JAX package has no latent attention
     }
     kernels = []
     for name, (source, replaces) in sources.items():
         c = chosen[name]
-        launches = sum(counts[name] for counts in paths.values())
+        launches = sum(counts.get(name, 0) for counts in paths.values())
         check(launches > 0, f"{name} was not launched on any main path")
         kernels.append({
-            "name": name, "route": "cuda", "source": csrc + source, "replaces": pallas + replaces,
+            "name": name, "route": "cuda", "source": csrc + source, "replaces": pallas + replaces if replaces else "none",
             "launches": launches, "max_abs_err": c["max_abs_err"], "ms": c["ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
             "library_ms": c["library_ms"],

@@ -28,7 +28,7 @@ import torch
 from torch import nn
 
 from coati_tpu_torch.common import tracing
-from coati_tpu_torch.models import coati
+from coati_tpu_torch.models import coati, trunks
 from coati_tpu_torch.models.sampler import (
     auto_stage_widths,
     generate_prefix_batch,
@@ -140,7 +140,9 @@ class InjectedDecoder:
             top_p=top_p,
         )
         with tracing.span("to_host"):
-            return out.cpu().numpy()
+            out = out.cpu().numpy()
+            trunks.publish_counters(self._compute.xformer)
+            return out
 
     # ------------------------------------------------------------ encode
     @public_call

@@ -22,10 +22,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from coati_tpu_torch.models.egnn import N_ONE_HOT, N_TORCH_EMB, EgnnConfig, egnn_forward
+from coati_tpu_torch.models import trunks
+from coati_tpu_torch.models.mla_moe import MlaMoeConfig, MlaMoeTransformer
 from coati_tpu_torch.models.transformer import (
     SmilesTransformer,
     TransformerConfig,
-    forward_hidden,
     forward_logits,
     stop_token_hidden,
 )
@@ -66,6 +67,10 @@ class CoatiConfig:
     remat: bool = False
     egnn_remat: bool = True
     softmax_dtype: str = "float32"
+    # DeepSeek-V2's block as the SMILES trunk, its widths here (None: COATI's
+    # rotary trunk); the smiles projection's LayerNorm and the token MLP's
+    # output then take the trunk's width
+    mla: Optional[MlaMoeConfig] = None
 
     def replace(self, **changes) -> "CoatiConfig":
         return dataclasses.replace(self, **changes)
@@ -75,7 +80,14 @@ class CoatiConfig:
         return self.n_embd_common
 
     @property
-    def xformer_config(self) -> TransformerConfig:
+    def xformer_config(self):
+        """The trunk's config: a TransformerConfig, or with `mla` set that
+        MlaMoeConfig with this config's depth, width, heads, n_seq,
+        vocabulary and dtype."""
+        if self.mla is not None:
+            return self.mla.replace(
+                n_layer=self.n_layer_xformer, n_embd=self.n_hidden_xformer, n_head=self.n_head,
+                n_seq=self.n_seq, n_tok=self.n_tok, dtype=self.dtype)
         return TransformerConfig(
             n_layer=self.n_layer_xformer,
             n_embd=self.n_hidden_xformer,
@@ -158,15 +170,17 @@ class CoatiModel(nn.Module):
 
     def __init__(self, cfg: CoatiConfig):
         super().__init__()
-        self.xformer = SmilesTransformer(cfg.xformer_config)
+        mla = cfg.mla is not None
+        self.xformer = (MlaMoeTransformer if mla else SmilesTransformer)(cfg.xformer_config)
         if cfg.use_point_encoder:
             self.point_encoder = PointEncoder(cfg)
             # REFERENCE QUIRK: the point head LayerNorm is over hidden_nf
             self.point_to_clip = _projection(cfg, cfg.n_hidden_e3nn, cfg.n_hidden_e3nn)
-        self.smiles_to_clip = _projection(cfg, cfg.n_hidden_xformer, cfg.embed_dim)
+        self.smiles_to_clip = _projection(cfg, cfg.n_hidden_xformer,
+                                          cfg.n_hidden_xformer if mla else cfg.embed_dim)
         if cfg.token_mlp:
             self.point_clip_to_special_tokens = nn.Sequential(
-                nn.SiLU(), nn.Linear(cfg.embed_dim, cfg.embed_dim)
+                nn.SiLU(), nn.Linear(cfg.embed_dim, cfg.n_hidden_xformer if mla else cfg.embed_dim)
             )
         if cfg.fp_map:
             self.fp_networks = nn.ModuleDict(
@@ -192,7 +206,7 @@ def encode_tokens(
 ) -> torch.Tensor:
     """(B, T) -> (B, embed_dim): hclip of the [STOP] hidden state."""
     xcfg = cfg.xformer_config
-    hidden = forward_hidden(params.xformer, xcfg, tokens)
+    hidden = trunks.of(xcfg).forward_hidden(params.xformer, xcfg, tokens)
     h = stop_token_hidden(hidden, tokens, stop_token)
     proj = cast_floats(params.smiles_to_clip, xcfg.compute_dtype)
     return apply_projection(proj, h, cfg.old_architecture)
@@ -395,7 +409,7 @@ def tokens_likelihood(
     the backbone of hclip_and_tokens_to_likelihood and
     batch_smiles_to_s2s_likelihood."""
     xcfg = cfg.xformer_config
-    hidden = forward_hidden(params.xformer, xcfg, tokens, injection, unk_token)
+    hidden = trunks.of(xcfg).forward_hidden(params.xformer, xcfg, tokens, injection, unk_token)
     lm_head = cast_floats(params.xformer.lm_head, xcfg.compute_dtype)
     logp = F.log_softmax(linear(hidden, lm_head.weight).float(), dim=-1)
     valid = y_next != -1

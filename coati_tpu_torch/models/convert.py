@@ -32,6 +32,7 @@ import torch
 
 from coati_tpu_torch.models.coati import CoatiConfig, CoatiModel
 from coati_tpu_torch.models.coati2 import Coati2Config, Coati2Model
+from coati_tpu_torch.models.mla_moe import MlaMoeConfig
 
 _COATI_KWARG_FIELDS = (
     "n_layer_e3gnn",
@@ -51,6 +52,7 @@ _COATI_KWARG_FIELDS = (
     "token_mlp",
     "use_point_encoder",
     "old_architecture",
+    "mla",
 )
 
 
@@ -58,6 +60,8 @@ def config_from_model_kwargs(model_kwargs: Mapping[str, object], **overrides) ->
     """CoatiConfig from a document's stored constructor kwargs."""
     kwargs = {k: model_kwargs[k] for k in _COATI_KWARG_FIELDS if k in model_kwargs}
     kwargs.update(overrides)
+    if isinstance(kwargs.get("mla"), Mapping):  # the latent-attention trunk's widths
+        kwargs["mla"] = MlaMoeConfig(**kwargs["mla"])
     return CoatiConfig(**kwargs)
 
 

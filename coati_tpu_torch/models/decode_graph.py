@@ -7,8 +7,8 @@ every position of a call: the shapes (B, cache width, layers), the
 weights and the cache buffers stay; only the input token and the
 position change. A `StepGraph` owns those two as static buffers (the
 token (B,) int64, the position one int32 on the card), the KV cache at
-the call's width and the step's float32 logits, and a graph of
-`transformer.decode_step_at` over them: the K/V write and the rotary
+the call's width and the step's float32 logits, and a graph of the
+trunk's `decode_step_at` (models/trunks.py) over them: the K/V write and the rotary
 row index by the device position (the rotary tables built once, at
 capture), K1 reads it on the card, and the graph's last node advances it
 by one. A step is then one copy of the sampled token and one replay; the
@@ -74,7 +74,7 @@ import torch
 from torch import nn
 
 from coati_tpu_torch.common import tracing
-from coati_tpu_torch.models import transformer
+from coati_tpu_torch.models import trunks
 from coati_tpu_torch.ops.kernels import decode_attention as kdecode
 
 MAX_SHAPES = 4  # graphs kept a weights module
@@ -142,10 +142,10 @@ class StepGraph:
 
     def __init__(self, params: nn.Module, cfg, batch: int, width: int, device):
         device = torch.device(device)
-        self.cache = transformer.make_empty_cache(cfg, batch, width=width, device=device)
+        self.cache = trunks.of(cfg).make_empty_cache(cfg, batch, width=width, device=device)
         self.token = torch.zeros(batch, dtype=torch.long, device=device)
         self.pos = torch.zeros(1, dtype=torch.int32, device=device)
-        self.tables = transformer._rotary(cfg, device)
+        self.tables = trunks.of(cfg).decode_tables(cfg, device)
         self.layout = _layout(params)
         self.lock = threading.Lock()
         self.all_stopped = torch.zeros((), dtype=torch.bool, pin_memory=True)
@@ -180,8 +180,8 @@ class StepGraph:
             if x is not None)
 
     def _forward(self, params, cfg) -> torch.Tensor:
-        logits, _ = transformer.decode_step_at(params, cfg, self.token, self.pos, self.cache,
-                                               self.tables)
+        logits, _ = trunks.of(cfg).decode_step_at(params, cfg, self.token, self.pos, self.cache,
+                                                  self.tables)
         out = logits.float()
         self.pos += 1
         return out

@@ -19,14 +19,8 @@ from typing import Optional, Sequence
 import torch
 
 from coati_tpu_torch.common import tracing
-from coati_tpu_torch.models import decode_graph
-from coati_tpu_torch.models.transformer import (
-    SmilesTransformer,
-    TransformerConfig,
-    decode_step,
-    make_empty_cache,
-    prefill,
-)
+from coati_tpu_torch.models import decode_graph, trunks
+from coati_tpu_torch.models.transformer import SmilesTransformer, TransformerConfig
 from coati_tpu_torch.ops.layers import cast_floats, linear
 from coati_tpu_torch.ops.sampling import sample_top_k
 
@@ -96,6 +90,7 @@ def generate_tokens(
     b = prefix_tokens.shape[0]
     device = prefix_tokens.device
     compute = cast_floats(params, cfg.compute_dtype)  # once, not per step
+    trunk = trunks.of(cfg)
     graphed = decode_graph.step_graph(params, compute, cfg, b, total_len, device) \
         if total_len > prefill_len else contextlib.nullcontext()
     with graphed as graph:
@@ -103,8 +98,8 @@ def generate_tokens(
             tokens = prefix_tokens.to(torch.long).clone()
             prefix_len = prefix_len.to(device)
             cache = graph.cache if graph is not None else \
-                make_empty_cache(cfg, b, width=total_len, device=device)
-            hidden, cache = prefill(
+                trunk.make_empty_cache(cfg, b, width=total_len, device=device)
+            hidden, cache = trunk.prefill(
                 compute, cfg, tokens[:, :prefill_len],
                 injection=inj_payload,
                 inject_token=inject_token if inj_payload is not None else None,
@@ -137,7 +132,7 @@ def generate_tokens(
                             stopped |= tok == stop_token
                         with tracing.span("decode.forward"):
                             if graph is None:
-                                logits, cache = decode_step(compute, cfg, tok, pos, cache)
+                                logits, cache = trunk.decode_step(compute, cfg, tok, pos, cache)
                                 last_logits = logits.float()
                             else:  # the graph advances its own position
                                 graph.post_stopped(stopped)

@@ -220,6 +220,11 @@ def _rotary(cfg: TransformerConfig, device: torch.device):
     return cos.to(cfg.compute_dtype), sin.to(cfg.compute_dtype)
 
 
+def decode_tables(cfg, device: torch.device) -> tuple:
+    """The rotary (cos, sin) tables `decode_step_at` gathers its row from."""
+    return _rotary(cfg, device)
+
+
 # --------------------------------------------------------------- embedding
 
 

@@ -18,7 +18,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from coati_tpu_torch.common import tracing
 from coati_tpu_torch.data.batch_pipe import batch_rows
 from coati_tpu_torch.models import coati as tco
-from coati_tpu_torch.models import sampler
+from coati_tpu_torch.models import transformer
 from coati_tpu_torch.models.api import COATI
 from coati_tpu_torch.tokenizers import get_vocab
 from coati_tpu_torch.tokenizers.trie_tokenizer import TrieTokenizer
@@ -106,13 +106,13 @@ def test_round_trip_keeps_one_root_per_call_its_steps_and_live_rows(monkeypatch)
     model, tok = _small_model(seed=3)
     rows = _rows(tok)
     forwards = []
-    real_step = sampler.decode_step
+    real_step = transformer.decode_step  # what the sampler calls for this trunk (models/trunks.py)
 
     def counted_step(*args, **kwargs):
         forwards.append(1)
         return real_step(*args, **kwargs)
 
-    monkeypatch.setattr(sampler, "decode_step", counted_step)
+    monkeypatch.setattr(transformer, "decode_step", counted_step)
     kept = _KeepRows(tok)
     prefix = len(tok.tokenize_text("[CLIP][UNK][SMILES]", pad=False))
     tracing.start()
