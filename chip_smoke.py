@@ -105,6 +105,25 @@ number is taken.
     the seeded pipe so that no copy is taken inside the run, cold (caches
     cleared) and warm, with the share of permuted targets and the
     canonicalizations each path answered.
+    train_graph (after train; `python3 chip_smoke.py train_graph` runs it
+    alone): the training step's forward and backward replayed from a CUDA
+    graph a batch shape (training/step_graph.py) against the eager step.
+    The grande recipe in bf16 with `p_clip_emb_smi` 0.4 (the generator's
+    draws matter), 12 steps over batches that cycle through three (T, N)
+    widths (each: eager, capture, two replays), three models from one seed
+    in lockstep: two eager (inside `step_graph.eager()`) and one graphed,
+    each step started from the first eager model's state. The losses and
+    the generators' states must be the same bits, and so every gradient
+    but the point encoder's (K4's dc adds by float32 atomics, so those vary
+    from eager run to eager run: within 1e-4 x max(1, max |eager|)); the
+    parameters and Adam's moments after the step too where the clipped
+    norms are the same bits. Which leaves differ, and by how much, graphed
+    and eager beside eager and eager; K3, K4, K5f and K5b launches equal; 3
+    captures and 6 replays. A capture while a loss of a step run by hand on
+    the default stream is kept alive (its autograd graph holds the
+    parameters' gradient accumulators there): one capture, two replays,
+    the same losses as an eager twin. Then each path free-running from the
+    seed: the steps' host seconds, the losses, the peak memory.
  5. train_fp32_vs_plain: one float32 training step at full width (4
     transformer layers, 2 EGNN layers, batch 64) from the same weights,
     batch and clip-token choice, through the kernels and through their plain
@@ -874,8 +893,10 @@ def record_shapes(decode_calls=None):
     every decode step; with `decode_calls` (a Counter), also K1's calls by
     the form of the cache ("float32", "bfloat16", "int8/float32", ...).
     The wrappers still count their launches. Decode steps run eagerly
-    meanwhile (decode_graph.eager), so every step's call is seen."""
+    meanwhile (decode_graph.eager), and training steps (step_graph.eager),
+    so every step's call is seen."""
     from coati_tpu_torch.models import decode_graph, transformer
+    from coati_tpu_torch.training import step_graph
 
     full, decode = set(), collections.defaultdict(set)
 
@@ -910,7 +931,7 @@ def record_shapes(decode_calls=None):
     transformer.decode_attention = decode_call(saved["decode_attention"], False)
     transformer.decode_attention_quant = decode_call(saved["decode_attention_quant"], True)
     try:
-        with decode_graph.eager():
+        with decode_graph.eager(), step_graph.eager():
             yield full, decode
     finally:
         for name, fn in saved.items():
@@ -1087,9 +1108,11 @@ def plain_versions():
     swaps the kernel wrappers that the transformer and EGNN modules call.
     The plain forwards are plain tensor code, so a backward through them is
     PyTorch's own autograd and reaches neither K4, K5b nor K2's replay.
-    Decode steps run eagerly meanwhile (decode_graph.eager): a graph
-    captured over the plain versions must not outlive the swap."""
+    Decode and training steps run eagerly meanwhile (decode_graph.eager,
+    step_graph.eager): a graph captured over the plain versions must not
+    outlive the swap."""
     from coati_tpu_torch.models import decode_graph, egnn, transformer
+    from coati_tpu_torch.training import step_graph
     from coati_tpu_torch.ops import attention as plain
     from coati_tpu_torch.ops import egnn_messages as plain_messages
 
@@ -1107,7 +1130,7 @@ def plain_versions():
     for module, name, fn in swaps:
         setattr(module, name, fn)
     try:
-        with decode_graph.eager():
+        with decode_graph.eager(), step_graph.eager():
             yield
     finally:
         for module, name, fn in saved:
@@ -2097,6 +2120,249 @@ def phase_train_fp32_vs_plain():
     check(counts["flash_causal_attention"] == 16 and counts["packed_causal_attention"] == 0
           and counts["packed_causal_attention_backward"] == 0,
           f"flash route: launches {counts}")
+
+
+TRAIN_GRAPH_STEPS = 12
+
+
+def _train_graph_batches(config, tok, steps):
+    """`steps` device batches of the recipe's transform on the fixture's
+    molecules: three batches, each padded to a (T, N) width of its own, in
+    turn. Padding tokens are [PAD] with label -1 and padding atoms 0, which
+    the losses and the EGNN leave out."""
+    from coati_tpu_torch.data import fixture_dataset
+    from coati_tpu_torch.data.xform import clip_ar_xform
+    from coati_tpu_torch.training import train
+
+    random.seed(0)  # permute_smiles draws from the global random module
+    pipe = fixture_dataset(3 * config.batch_size).get_data_pipe(
+        batch_size=config.batch_size,
+        xform_routine=lambda b: clip_ar_xform(
+            b, tokenizer=tok, p_dataset=config.p_dataset, p_formula=config.p_formula,
+            p_clip=config.p_clip, p_clip_cut=config.p_clip_cut,
+            p_randsmiles=config.p_randsmiles, rng=random.Random(0)))
+    hosts = list(itertools.islice(pipe, 3))
+    t0 = max(h["tokens"].shape[1] for h in hosts)
+    n0 = max(h["atoms"].shape[1] for h in hosts)
+    widths = [(t0, n0), (t0 + 16, n0 + 32), (t0 + 32, n0 + 16)]
+    batches = []
+    for host, (t, n) in zip(hosts, widths):
+        host = dict(host)
+        for key, fill in (("tokens", 0), ("raw_tokens", 0), ("y_next", -1)):
+            host[key] = np.pad(host[key], ((0, 0), (0, t - host[key].shape[1])),
+                               constant_values=fill)
+        extra = n - host["atoms"].shape[1]
+        host["atoms"] = np.pad(host["atoms"], ((0, 0), (0, extra)))
+        host["coords"] = np.pad(host["coords"], ((0, 0), (0, extra), (0, 0)))
+        batches.append(train.batch_to_device(host, torch.device("cuda")))
+    return [batches[i % 3] for i in range(steps)], widths
+
+
+def _leaf_gaps(mine: dict, ref: dict) -> dict:
+    """{leaf: max |mine - ref| / max(1, max |ref|)} of the leaves that
+    differ at all."""
+    out = {}
+    for name, r in ref.items():
+        m = mine[name]
+        if r is None or m is None:
+            if (r is None) != (m is None):
+                out[name] = float("inf")
+            continue
+        if not torch.equal(m, r):
+            out[name] = float((m - r).abs().max()) / max(1.0, float(r.abs().max()))
+    return out
+
+
+def _gap_summary(gaps: dict) -> dict:
+    worst = max(gaps, key=gaps.get) if gaps else None
+    return {"leaves": len(gaps), "worst": worst, "worst_gap": gaps[worst] if worst else 0.0,
+            "point_encoder_only": all(n.startswith("point_encoder.") for n in gaps)}
+
+
+class _GradTap:
+    """The gradients as the optimizer gets them (before its clip), by
+    parameter name, from a pre-step hook."""
+
+    def __init__(self, model, optimizer):
+        self.named = list(model.named_parameters())
+        self.grads = {}
+        optimizer.register_step_pre_hook(self._take)
+
+    def _take(self, opt, args, kwargs):
+        self.grads = {n: None if p.grad is None else p.grad.detach().clone()
+                      for n, p in self.named}
+
+
+def _training_state(model, optimizer) -> dict:
+    """Parameters and both Adam moments by name, cloned."""
+    out = {}
+    for name, p in model.named_parameters():
+        out[name] = p.detach().clone()
+        state = optimizer.state.get(p, {})
+        for key in ("exp_avg", "exp_avg_sq"):
+            if key in state:
+                out[f"{key}:{name}"] = state[key].detach().clone()
+    return out
+
+
+def _copy_training_state(src, dst) -> None:
+    """dst's model and optimizer take src's values, in place (a graph reads
+    dst's parameters where they are)."""
+    (m_src, o_src), (m_dst, o_dst) = src, dst
+    with torch.no_grad():
+        for p, q in zip(m_src.parameters(), m_dst.parameters()):
+            q.copy_(p)
+            for key, value in o_src.state.get(p, {}).items():
+                o_dst.state[q][key].copy_(value)
+
+
+def phase_train_graph():
+    """The training step's forward and backward replayed from a CUDA graph
+    a batch shape (training/step_graph.py) against the eager step, bit for
+    bit but for K4's dc atomics; see the module docstring's `train_graph`."""
+    from coati_tpu_torch.common import tracing
+    from coati_tpu_torch.training import step_graph, train
+    from coati_tpu_torch.training.config import grande_config
+
+    steps = TRAIN_GRAPH_STEPS
+    config = grande_config(dtype="bfloat16", n_epochs=1, p_clip_emb_smi=0.4)
+    _, tok = _train_step(config, None)
+    batches, widths = _train_graph_batches(config, tok, steps)
+
+    def make(tap=True):
+        step, _ = _train_step(config, None)  # fresh from seed 0
+        return (step, torch.Generator(device="cuda").manual_seed(1),
+                _GradTap(step.model, step.optimizer) if tap else None)
+
+    def run_step(step, gen, batch, graphed):
+        before = _counts()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        with contextlib.nullcontext() if graphed else step_graph.eager():
+            metrics = step(gen, batch)
+        host_s = time.perf_counter() - start
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - start
+        launches = {n: c - before[n] for n, c in _counts().items()}
+        return [float(metrics[k]) for k in ("loss", "ar_loss", "clip_loss")], host_s, wall_s, \
+            launches
+
+    # lockstep: every step starts from the first eager model's state
+    eager1, eager2, graphed = make(), make(), make()
+    totals = {"eager": collections.Counter(), "graphed": collections.Counter()}
+    tracing.reset()
+    tracing.start()
+    rows = []
+    for i, batch in enumerate(batches):
+        if i:
+            for twin in (eager2, graphed):
+                _copy_training_state((eager1[0].model, eager1[0].optimizer),
+                                     (twin[0].model, twin[0].optimizer))
+        out = {}
+        for label, (step, gen, _), is_graphed in (("eager", eager1, False), ("eager2", eager2, False),
+                                                  ("graphed", graphed, True)):
+            if label == "graphed":
+                tracing.start()
+            else:
+                tracing.stop()
+            out[label] = run_step(step, gen, batch, is_graphed)
+            if label in totals:
+                totals[label].update(out[label][3])
+        tracing.stop()
+        states = {label: _training_state(step.model, step.optimizer)
+                  for label, (step, _, _) in (("eager", eager1), ("eager2", eager2),
+                                              ("graphed", graphed))}
+        grads = {"eager": eager1[2].grads, "eager2": eager2[2].grads, "graphed": graphed[2].grads}
+        gens = [g.get_state() for g in (eager1[1], eager2[1], graphed[1])]
+        norms = [float(s.optimizer.last_grad_norm) for s, _, _ in (eager1, eager2, graphed)]
+        row = {"phase": "train_graph_step", "step": i, "T_N": list(widths[i % 3]),
+               "losses": {k: v[0] for k, v in out.items()},
+               "host_s": {k: v[1] for k, v in out.items()},
+               "wall_s": {k: v[2] for k, v in out.items()},
+               "clip_norms": norms,
+               "generators_equal": all(torch.equal(gens[0], g) for g in gens[1:]),
+               "grads_graphed_vs_eager": _gap_summary(_leaf_gaps(grads["graphed"], grads["eager"])),
+               "grads_eager_vs_eager": _gap_summary(_leaf_gaps(grads["eager2"], grads["eager"])),
+               "state_graphed_vs_eager": _gap_summary(_leaf_gaps(states["graphed"],
+                                                                 states["eager"])),
+               "state_eager_vs_eager": _gap_summary(_leaf_gaps(states["eager2"],
+                                                               states["eager"]))}
+        emit(row)
+        rows.append(row)
+        check(row["losses"]["graphed"] == row["losses"]["eager"],
+              f"train_graph step {i}: losses {row['losses']}")
+        check(row["generators_equal"], f"train_graph step {i}: the generators' states differ")
+        g = row["grads_graphed_vs_eager"]
+        check(g["point_encoder_only"] and g["worst_gap"] <= 1e-4,
+              f"train_graph step {i}: gradients differ {g}")
+        if norms[2] == norms[0]:
+            st = row["state_graphed_vs_eager"]
+            check(st["point_encoder_only"],
+                  f"train_graph step {i}: parameters or moments differ past the point encoder {st}")
+    counters = tracing.snapshot()["counters"]
+    captures = counters.get("train.graph_captures", 0)
+    replays = counters.get("train.graph_steps", 0)
+    kernels = ("egnn_messages", "egnn_messages_backward", "packed_causal_attention",
+               "packed_causal_attention_backward")
+    launches = {label: {k: totals[label][k] for k in kernels} for label in totals}
+    check(launches["graphed"] == launches["eager"], f"train_graph: launches {launches}")
+    check(all(launches["eager"][k] > 0 for k in kernels), f"train_graph: launches {launches}")
+    check((captures, replays) == (3, steps - 6),
+          f"train_graph: {captures} captures and {replays} replays")
+    del eager1, eager2, graphed, rows
+
+    # a loss kept alive from a step run by hand on the default stream holds
+    # that step's autograd graph and its gradient accumulators: the capture
+    # runs over fresh leaves (step_graph.fresh_leaves), so it neither waits on
+    # them nor fails, and the steps equal an eager twin's
+    (twin, twin_gen, _), (held, held_gen, _) = make(tap=False), make(tap=False)
+    kept = {"eager": [], "graphed": []}
+    for step, gen, label in ((twin, twin_gen, "eager"), (held, held_gen, "graphed")):
+        loss, ar, cl = step.losses(gen, batches[0])
+        loss.backward()
+        step.update()
+        kept[label].append([float(x.detach()) for x in (loss, ar, cl)])
+        kept[label + "_graph"] = loss  # kept alive through the steps below
+    del loss, ar, cl
+    tracing.reset()
+    for _ in range(4):  # eager, capture, two replays
+        for step, gen, label in ((twin, twin_gen, "eager"), (held, held_gen, "graphed")):
+            if label == "graphed":
+                tracing.start()
+            kept[label].append(run_step(step, gen, batches[0], label == "graphed")[0])
+            tracing.stop()
+    counters = tracing.snapshot()["counters"]
+    line = {"phase": "train_graph_held_loss", "losses": {k: kept[k] for k in ("eager", "graphed")},
+            "captures": counters.get("train.graph_captures", 0),
+            "replays": counters.get("train.graph_steps", 0)}
+    emit(line)
+    check(kept["graphed"] == kept["eager"], f"train_graph: with a loss held, losses {line}")
+    check((line["captures"], line["replays"]) == (1, 2),
+          f"train_graph: with a loss held, captures and replays {line}")
+    del twin, held, kept
+
+    # each path free-running from the seed: host seconds, losses, peak memory
+    free = {}
+    for label, is_graphed in (("eager", False), ("graphed", True)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step, gen, _ = make(tap=False)
+        runs = [run_step(step, gen, batch, is_graphed) for batch in batches]
+        free[label] = {"losses": [r[0] for r in runs], "host_s": [r[1] for r in runs],
+                       "wall_s": [r[2] for r in runs],
+                       "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del step, gen
+    replayed = [i for i in range(steps) if i >= 6]  # every shape's third and fourth steps
+    emit({"phase": "train_graph", "steps": steps, "widths_T_N": [list(w) for w in widths],
+          "p_clip_emb_smi": config.p_clip_emb_smi, "captures": captures, "replays": replays,
+          "launches": launches,
+          "host_s_replayed_steps": {k: [free[k]["host_s"][i] for i in replayed] for k in free},
+          "wall_s_replayed_steps": {k: [free[k]["wall_s"][i] for i in replayed] for k in free},
+          "capture_step_wall_s": [free["graphed"]["wall_s"][i] for i in range(3, 6)],
+          "free_running": free,
+          "free_running_first_loss_equal": free["graphed"]["losses"][0] == free["eager"]["losses"][0]})
+    check(free["graphed"]["losses"][0] == free["eager"]["losses"][0],
+          "train_graph: the free-running runs' first losses differ")
 
 
 # COATI2 grande: the recipe of examples/train_coati2.py (16 x 512, 16 heads
@@ -4575,6 +4841,10 @@ def main() -> int:
         phase_mla_moe()
         emit({"ok": True, "phase": "mla_moe"})
         return 0
+    if sys.argv[1:] == ["train_graph"]:  # that phase alone
+        phase_train_graph()
+        emit({"ok": True, "phase": "train_graph"})
+        return 0
 
     def lap(phase):
         emit({"phase": "elapsed", "after": phase, "seconds": time.perf_counter() - started})
@@ -4609,6 +4879,8 @@ def main() -> int:
     lap("coati2")
     paths["train"] = phase_train()
     lap("train")
+    phase_train_graph()
+    lap("train_graph")
     phase_train_fp32_vs_plain()
     lap("train_fp32_vs_plain")
     paths["coati2_train"] = phase_coati2_train()

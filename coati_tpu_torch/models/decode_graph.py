@@ -56,7 +56,7 @@ later capture of the same key skips it. One call uses a graph at a time;
 a second thread's call with the same key meanwhile runs eagerly.
 
 Counters: K1's wrappers count the launches a capture records apart from
-`.launches` (`decode_attention.recording_launches`), and a replay adds
+`.launches` (`ops/kernels/build.recording_launches`), and a replay adds
 exactly those, so `.launches` counts what runs on the card. Those of
 `common.tracing`: `decode.graph_captures` (one a capture) and
 `decode.graph_steps` (replays, counted in the sampler).
@@ -75,7 +75,7 @@ from torch import nn
 
 from coati_tpu_torch.common import tracing
 from coati_tpu_torch.models import trunks
-from coati_tpu_torch.ops.kernels import decode_attention as kdecode
+from coati_tpu_torch.ops.kernels import build
 
 MAX_SHAPES = 4  # graphs kept a weights module
 SEEN_SHAPES = 64  # keys remembered for the second-use rule
@@ -168,7 +168,7 @@ class StepGraph:
                 # torch.cuda.graph's capture without the gc.collect() and
                 # empty_cache() it runs first; K1's launches in it are
                 # recorded for the replays to count
-                with kdecode.recording_launches() as self.launches:
+                with build.recording_launches() as self.launches:
                     self.graph.capture_begin(capture_error_mode="thread_local")
                     try:
                         self.logits = self._forward(params, cfg)
@@ -210,8 +210,7 @@ class StepGraph:
     def step(self, token: torch.Tensor) -> torch.Tensor:
         self.token.copy_(token)
         self.graph.replay()
-        for wrapper, n in self.launches.items():
-            wrapper.launches += n
+        build.add_launches(self.launches)
         return self.logits
 
 

@@ -40,6 +40,17 @@ from coati_tpu_torch.ops.layers import cast_floats, gelu_tanh, instance_norm_las
 
 N_ONE_HOT = 28  # width of the atom one-hot (xpos, 18 + ypos)
 N_TORCH_EMB = 84  # rows of the nn.Embedding table when torch_emb
+_ONE_HOT_TABLES = {}  # device -> the one-hot table there, copied from the host once
+
+
+def _one_hot_table(device: torch.device) -> torch.Tensor:
+    """The (n_elements, 28) atom one-hot table on `device`. Made once a
+    device: a copy from host memory waits for the card, and a training step
+    captured as a CUDA graph (training/step_graph.py) may hold no such copy."""
+    table = _ONE_HOT_TABLES.get(device)
+    if table is None:
+        table = _ONE_HOT_TABLES[device] = torch.tensor(xy_one_hot_full_table(), device=device)
+    return table
 
 
 @dataclass(frozen=True)
@@ -170,8 +181,7 @@ def egnn_forward(
         nodes = params.emb.weight[atoms]
         h = nodes
     else:
-        table = torch.tensor(xy_one_hot_full_table(), device=atoms.device)
-        nodes = table[atoms].to(dtype)  # (B, N, 28)
+        nodes = _one_hot_table(atoms.device)[atoms].to(dtype)  # (B, N, 28)
         h = linear(nodes, params.embedding.weight, params.embedding.bias)
     if cfg.instance_norm:
         h = instance_norm_lastdim(h)
@@ -184,7 +194,11 @@ def egnn_forward(
     for i in range(cfg.n_layers):
         gcl = getattr(params, f"gcl_{i}")
         if remat:
-            h = checkpoint(_egnn_layer, h, gcl, cfg, d2, msg_weight, h0, use_reentrant=False)
+            # exact only because a layer draws no random numbers: its recomputation
+            # needs no saved RNG state, and reading one is not capture-safe
+            # (training/step_graph.py)
+            h = checkpoint(_egnn_layer, h, gcl, cfg, d2, msg_weight, h0, use_reentrant=False,
+                           preserve_rng_state=False)
         else:
             h = _egnn_layer(h, gcl, cfg, d2, msg_weight, h0)
 

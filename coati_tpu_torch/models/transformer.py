@@ -329,7 +329,11 @@ def forward_hidden(
     tp = _tp_group(params)
     for blk in params.transformer.h:
         if remat:
-            x = checkpoint(_block_full, x, blk, cfg, cos, sin, tp, use_reentrant=False)
+            # exact only because a block draws no random numbers: its recomputation
+            # needs no saved RNG state, and reading one is not capture-safe
+            # (a training step is captured as a CUDA graph, training/step_graph.py)
+            x = checkpoint(_block_full, x, blk, cfg, cos, sin, tp, use_reentrant=False,
+                           preserve_rng_state=False)
         else:
             x = _block_full(x, blk, cfg, cos, sin, tp)
     lnf = params.transformer.ln_f

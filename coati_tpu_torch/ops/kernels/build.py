@@ -7,10 +7,21 @@ on a hash of the source, the shared headers and the flags: an edited
 source rebuilds, an unchanged one loads from coati_tpu_torch/_build/
 (listed in .gitignore). `build()` compiles several sources in parallel,
 one nvcc process each.
+
+Each kernel wrapper counts its launches in a counter attribute of its own
+(`.launches`, and `.bwd_launches` for a backward kernel) through
+`count_launch`. A launch made while the current stream is being captured
+into a CUDA graph runs nothing on the card then: it is counted in the
+recording of `recording_launches` for that stream instead, whichever
+thread makes it (autograd launches a backward from a thread of its own, on
+its forward's stream), and nowhere outside one; the graph's owner adds
+those counts at each replay (`add_launches`), so the counters count what
+runs on the card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -47,6 +58,9 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 # one build at a time within a process: threads that call a kernel for the
 # first time together (a server's batchers) would share a temporary file
 _LOAD_LOCK = threading.Lock()
+# capturing stream -> {(wrapper, counter): launches} of the graph captured on it
+_RECORDINGS: Dict[int, dict] = {}
+_RECORDING_LOCK = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -123,3 +137,45 @@ def check(err: int, what: str) -> None:
 
 def stream_handle(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _stream_key() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Yields a dict that counts, by (wrapper, counter name), the launches
+    onto the current stream that a CUDA graph captured inside the block
+    records; they go to it and not to the counters, since a capture runs
+    nothing and each replay runs them all."""
+    key = _stream_key()
+    counts: dict = {}
+    with _RECORDING_LOCK:
+        saved = _RECORDINGS.get(key)
+        _RECORDINGS[key] = counts
+    try:
+        yield counts
+    finally:
+        with _RECORDING_LOCK:
+            if saved is None:
+                _RECORDINGS.pop(key, None)
+            else:
+                _RECORDINGS[key] = saved
+
+
+def count_launch(wrapper, counter: str = "launches") -> None:
+    """One launch of `wrapper`: in its counter `counter`, or, while the
+    current stream is being captured, in the capture's recording (if any)."""
+    if torch.cuda.is_current_stream_capturing():
+        counts = _RECORDINGS.get(_stream_key())
+        if counts is not None:
+            counts[wrapper, counter] = counts.get((wrapper, counter), 0) + 1
+        return
+    setattr(wrapper, counter, getattr(wrapper, counter) + 1)
+
+
+def add_launches(recorded: dict) -> None:
+    """Add a recording's launches to their counters: one replay's."""
+    for (wrapper, counter), n in recorded.items():
+        setattr(wrapper, counter, getattr(wrapper, counter) + n)

@@ -18,10 +18,10 @@ per-(token, head) scales. For CPU tensors they run the plain versions
 (ops/attention.py); for CUDA tensors they launch the kernel or raise, with
 no fallback: an int8 cache given to `decode_attention`, or one without
 scales, is an error, never a silent detour. Each wrapper counts its
-launches in `.launches`. A launch made while the thread's stream is being
-captured into a CUDA graph runs nothing on the card then: it is counted in
-the recording of `recording_launches` instead, whose owner adds those
-counts at each replay (models/decode_graph.py), and nowhere outside one.
+launches in `.launches` (`build.count_launch`: a launch made while the
+stream is being captured into a CUDA graph is counted in the capture's
+recording, `build.recording_launches`, whose owner adds those counts at
+each replay, models/decode_graph.py).
 
 The cache slice of one layer, `data[l, 0]` of the (L, 2, B, T, H, Dh)
 cache, is a contiguous (B, T, H, Dh) view and is read in place; q and
@@ -40,10 +40,8 @@ next, at the cost of a copy of the cache a launch.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import math
-import threading
 from typing import Optional
 
 import torch
@@ -58,34 +56,6 @@ _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes
 _AT_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
                 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
 _GROUPS_ARGTYPES = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
-_recording = threading.local()  # .counts: {wrapper: launches} of the graph this thread captures
-
-
-@contextlib.contextmanager
-def recording_launches():
-    """Yields a dict that counts, by wrapper, the launches a CUDA graph
-    captured on this thread inside the block records; they go to it and not
-    to `.launches`, since a capture runs nothing and each replay runs them
-    all."""
-    saved = getattr(_recording, "counts", None)
-    _recording.counts = counts = {}
-    try:
-        yield counts
-    finally:
-        _recording.counts = saved
-
-
-def _count(wrapper) -> None:
-    """One launch of `wrapper`: in its `.launches`, or, while this thread's
-    stream is being captured, in the capture's recording (if any)."""
-    if torch.cuda.is_current_stream_capturing():
-        counts = getattr(_recording, "counts", None)
-        if counts is not None:
-            counts[wrapper] = counts.get(wrapper, 0) + 1
-        return
-    wrapper.launches += 1
-
-
 def _entry(name: str, argtypes):
     fn = getattr(build.load("decode_attention"), name)
     fn.argtypes = argtypes
@@ -201,7 +171,7 @@ def decode_attention(q1: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Ten
             f"{k_cache.dtype}/{v_cache.dtype} (an int8 cache goes to decode_attention_quant)"
         )
     out = _launch(q1, k_cache, v_cache, None, None, pos, 0)
-    _count(decode_attention)
+    build.count_launch(decode_attention)
     return out
 
 
@@ -238,7 +208,7 @@ def decode_attention_quant(
     if not (k_scale.is_contiguous() and v_scale.is_contiguous()):
         raise ValueError("decode_attention_quant: the scales must be contiguous")
     out = _launch(q1, k_data, v_data, k_scale, v_scale, pos, build.DTYPE_CODES[k_scale.dtype])
-    _count(decode_attention_quant)
+    build.count_launch(decode_attention_quant)
     return out
 
 

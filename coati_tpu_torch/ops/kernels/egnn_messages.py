@@ -236,7 +236,7 @@ def _forward(a, c, d2, w, wd, b1, w2, b2, mm_dtype) -> torch.Tensor:
         build.stream_handle(a.device),
     )
     build.check(err, "egnn_messages kernel")
-    egnn_messages.launches += 1
+    build.count_launch(egnn_messages)
     return out.to(a.dtype)
 
 
@@ -284,7 +284,7 @@ def egnn_messages_backward(a, c, d2, w, wd, b1, w2, b2, g, mm_dtype=torch.float3
         *extra, b, n, hm, int(bf16), build.stream_handle(dev),
     )
     build.check(err, "egnn_messages_backward kernel")
-    egnn_messages.bwd_launches += 1
+    build.count_launch(egnn_messages, "bwd_launches")
     return da, dc, dwd, db1, dw2, db2
 
 

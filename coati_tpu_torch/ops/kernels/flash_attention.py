@@ -150,7 +150,7 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         1.0 / math.sqrt(dh), build.stream_handle(q.device),
     )
     build.check(err, "flash_causal_attention kernel")
-    flash_causal_attention.launches += 1
+    build.count_launch(flash_causal_attention)
     return out[..., :dh].contiguous() if width else out
 
 

@@ -24,7 +24,7 @@ captured CUDA graph replays the step at every position
 and the kernel for CUDA tensors of the configuration's form (bfloat16, 16
 heads, rows of 576 with a 512-wide latent), with no fallback: any other
 CUDA input raises. Launches are counted in `mla_decode.launches`, or in a
-capture's recording (decode_attention.recording_launches), as K1's are.
+capture's recording (build.recording_launches), as K1's are.
 """
 
 from __future__ import annotations
@@ -35,7 +35,6 @@ import functools
 import torch
 
 from coati_tpu_torch.ops.kernels import build
-from coati_tpu_torch.ops.kernels.decode_attention import _count
 
 LATENT = 512  # the width of c (DeepSeek-V2's); the rest of a row is the rotated key
 HEADS, WIDTH = 16, 576  # the kernel's query heads and cache row (csrc/mla_decode.cu)
@@ -109,7 +108,7 @@ def mla_decode(q: torch.Tensor, cache: torch.Tensor, pos, scale: float,
         pos.data_ptr() if on_card else pos, scale, build.stream_handle(q.device),
     )
     build.check(err, "mla_decode kernel")
-    _count(mla_decode)
+    build.count_launch(mla_decode)
     return out
 
 

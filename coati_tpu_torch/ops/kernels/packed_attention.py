@@ -185,7 +185,7 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         1.0 / math.sqrt(unpadded), build.stream_handle(q.device),
     )
     build.check(err, "packed_causal_attention kernel")
-    packed_causal_attention.launches += 1
+    build.count_launch(packed_causal_attention)
     return out[..., :unpadded].contiguous() if width else out
 
 
@@ -229,7 +229,7 @@ def packed_causal_attention_backward(
         1.0 / math.sqrt(unpadded), build.stream_handle(q.device),
     )
     build.check(err, "packed_causal_attention_backward kernel")
-    packed_causal_attention.bwd_launches += 1
+    build.count_launch(packed_causal_attention, "bwd_launches")
     if width:
         return tuple(x[..., :unpadded].contiguous() for x in (dq, dk, dv))
     return dq, dk, dv

@@ -79,6 +79,7 @@ from coati_tpu_torch.training.config import TrainConfig
 from coati_tpu_torch.training.diagnostics import step_timer
 from coati_tpu_torch.training.flops import coati_train_step_model_flops
 from coati_tpu_torch.training.logger import COATILogger
+from coati_tpu_torch.training.step_graph import StepGraphs, engages, forward_backward
 
 
 class ClippedAdamW(torch.optim.AdamW):
@@ -316,7 +317,9 @@ class TrainStep:
     tensors on the device (reading one waits for the step); `losses` and
     `update` are its two halves. With is_training=False the call only
     evaluates: the model and the optimizer are left untouched. Over a mesh
-    `parallel` (a ParallelStep) carries the collectives."""
+    `parallel` (a ParallelStep) carries the collectives. On one CUDA
+    device the forward and backward of a training step are replayed from
+    a CUDA graph of its batch shape (training/step_graph.py; `graphs`)."""
 
     def __init__(
         self,
@@ -342,6 +345,7 @@ class TrainStep:
         self.do_clip = do_clip
         self.is_training = is_training
         self.parallel = parallel or ParallelStep()
+        self.graphs = StepGraphs()
 
     def losses(self, generator, batch: Dict[str, torch.Tensor], pick_point=None):
         """(loss, ar_loss, clip_loss) of a batch of device tensors; float32
@@ -365,8 +369,10 @@ class TrainStep:
     def __call__(self, generator, batch: Dict[str, torch.Tensor], pick_point=None):
         self.parallel.before_forward()
         if self.is_training:
-            loss, ar, cl = self.losses(generator, batch, pick_point)
-            loss.backward()
+            if engages(self, pick_point):
+                loss, ar, cl = self.graphs.run(self, generator, batch)
+            else:
+                loss, ar, cl = forward_backward(self, generator, batch, pick_point)
             self.update()
         else:
             with torch.no_grad():

@@ -474,6 +474,224 @@ def test_bf16_step_keeps_float32_masters_gradients_and_moments():
         assert state["exp_avg"].dtype == state["exp_avg_sq"].dtype == torch.float32
 
 
+# ------------------------------------- the step's CUDA graph, as far as the CPU sees it
+
+
+def _graph_counters():
+    from coati_tpu_torch.common import tracing
+
+    counters = tracing.snapshot()["counters"]
+    return {k: counters.get(k, 0) for k in ("train.graph_captures", "train.graph_steps")}
+
+
+def test_training_step_stays_eager_on_the_cpu_and_under_a_mesh_placement():
+    """A CPU model's training steps, without a clip-token choice given, run
+    eagerly: the graph cache notes no key, the graph counters stay at 0 and
+    the step's numbers are those of the eager forward, backward and update.
+    The engagement rule itself, on a step that reports a CUDA parameter:
+    only a training step with no placement, no given choice and no
+    `eager()` block open engages."""
+    from types import SimpleNamespace
+
+    from coati_tpu_torch.common import tracing
+    from coati_tpu_torch.training import step_graph
+
+    tok, _, _, _, _, model, tstep, teval = _step_pair(seed=77)
+    _, _, _, _, _, twin, twin_step, _ = _step_pair(seed=77)
+    batches = [hp.torch_batch(b) for b in _batches(tok, 2)]
+    tracing.reset()
+    tracing.start()
+    try:
+        gen, twin_gen = torch.Generator().manual_seed(5), torch.Generator().manual_seed(5)
+        for batch in batches + batches:
+            got = tstep(gen, batch)
+            loss, _, _ = step_graph.forward_backward(twin_step, twin_gen, batch)
+            twin_step.update()
+            assert float(got["loss"]) == float(loss.detach())
+        teval(gen, batches[0])
+    finally:
+        tracing.stop()
+    assert _graph_counters() == {"train.graph_captures": 0, "train.graph_steps": 0}
+    assert not tstep.graphs.cache.seen and not tstep.graphs.cache.graphs
+    assert all(torch.equal(a, b) for a, b in zip(model.parameters(), twin.parameters()))
+
+    card = SimpleNamespace(device=torch.device("cuda"))
+    on_card = SimpleNamespace(is_training=True, parallel=ttrain.ParallelStep(),
+                              model=SimpleNamespace(parameters=lambda: iter([card])))
+    assert step_graph.engages(on_card)
+    assert not step_graph.engages(on_card, pick_point=torch.ones(8, 1, dtype=torch.bool))
+    with step_graph.eager():
+        assert not step_graph.engages(on_card)
+    assert step_graph.engages(on_card)
+    mesh = SimpleNamespace(axes=SimpleNamespace(data_group=None, n_data=2))
+    assert not step_graph.engages(SimpleNamespace(
+        is_training=True, parallel=ttrain.ParallelStep(mesh), model=on_card.model))
+    assert not step_graph.engages(SimpleNamespace(
+        is_training=False, parallel=ttrain.ParallelStep(), model=on_card.model))
+    assert not step_graph.engages(tstep)  # the CPU model
+
+
+def _graph_batch(b=4, t=16, n=8, coords=torch.float32):
+    batch = {k: torch.zeros((b, t), dtype=torch.long) for k in ("raw_tokens", "tokens", "y_next")}
+    batch.update(atoms=torch.zeros((b, n), dtype=torch.long), coords=torch.zeros((b, n, 3),
+                                                                                   dtype=coords))
+    return batch
+
+
+def test_graph_cache_captures_on_second_use_keeps_the_recently_used_and_keys_by_the_inputs():
+    """The cache's bookkeeping, driven through `StepGraphs.run` with the
+    capture stood in for: a key's first step runs eagerly, its second
+    captures, later ones replay; at most `most` graphs are kept, the least
+    recently used going first, and a key let go is captured again at its
+    next use. The key is the five inputs' shapes and dtypes: values do not
+    enter it, and any input's width or dtype does."""
+    from coati_tpu_torch.training import step_graph
+
+    k = step_graph.key_of
+    base = _graph_batch()
+    assert k(base) == k({name: x + 1 for name, x in base.items()})
+    others = [_graph_batch(t=32), _graph_batch(n=12), _graph_batch(b=8),
+              _graph_batch(coords=torch.float64)]
+    others.append(dict(base, y_next=torch.zeros((4, 17), dtype=torch.long)))
+    assert len({k(base), *(k(x) for x in others)}) == 6
+
+    events = []
+
+    class Captured:
+        def __init__(self, step, generator, batch, pool, side):
+            self.key = k(batch)
+            self.first = ("captured", self.key)
+            events.append(("capture", self.key))
+
+        def current(self, step, generator):
+            return True
+
+        def replay(self, batch):
+            events.append(("replay", self.key))
+            return ("replayed", self.key)
+
+    import contextlib as _contextlib
+    from unittest import mock
+
+    graphs = step_graph.StepGraphs(most=2, seen=8)
+    with mock.patch.object(step_graph, "TrainGraph", Captured), \
+            mock.patch.object(step_graph, "forward_backward",
+                              lambda step, gen, batch: events.append(("eager", k(batch)))), \
+            mock.patch.object(torch.cuda, "graph_pool_handle", lambda: "pool"), \
+            mock.patch.object(torch.cuda, "Stream", lambda device: "side"), \
+            mock.patch.object(torch.cuda, "device", lambda device: _contextlib.nullcontext()):
+        a, b, c = _graph_batch(t=16), _graph_batch(t=32), _graph_batch(t=48)
+        for batch in (a, a, a, b, b, a, c, c, b, b, c, a, a):
+            graphs.run(None, None, batch)
+    ka, kb, kc = k(a), k(b), k(c)
+    assert events == [
+        ("eager", ka), ("capture", ka), ("replay", ka),
+        ("eager", kb), ("capture", kb), ("replay", ka),
+        ("eager", kc), ("capture", kc),  # b is now the least recently used: let go
+        ("capture", kb),  # met before: captured again at once; a let go
+        ("replay", kb), ("replay", kc),
+        ("capture", ka), ("replay", ka),
+    ]
+    assert list(graphs.cache.graphs) == [kc, ka]
+
+    cache = step_graph.ShapeCache(most=3, seen=2)
+    assert [cache.met_before(x) for x in ("p", "q", "r", "p", "r")] == [
+        False, False, False, False, True]  # only the last two keys are remembered
+
+
+def test_capture_runs_over_fresh_leaves_that_share_the_parameters_memory():
+    """`fresh_leaves`: inside the block every parameter is a new leaf over
+    the same memory (a parameter two modules share maps to one leaf), a
+    backward leaves its gradients on those leaves and none on the model's
+    own parameters, which are back in place after the block; writing a
+    parameter in place is seen through its leaf."""
+    from coati_tpu_torch.training import step_graph
+
+    shared = torch.nn.Linear(3, 3)
+    model = torch.nn.Sequential(shared, torch.nn.ReLU(), torch.nn.Linear(3, 3), shared)
+    params = list(model.parameters())
+    assert len(params) == 4  # the shared layer counted once
+    x = torch.randn(5, 3)
+    with step_graph.fresh_leaves(model, params) as leaves:
+        assert len(leaves) == 4 and all(a is not b for a, b in zip(leaves, params))
+        assert all(a.data_ptr() == b.data_ptr() and a.is_leaf for a, b in zip(leaves, params))
+        assert model[0].weight is model[3].weight is leaves[0]
+        model(x).sum().backward()
+        with torch.no_grad():
+            before = params[1].clone()
+            params[1].add_(1.0)
+            assert torch.equal(leaves[1], before + 1.0)
+            params[1].copy_(before)
+    assert all(a is b for a, b in zip(model.parameters(), params))
+    assert all(p.grad is None for p in params)
+    grads = [leaf.grad for leaf in leaves]
+    model.zero_grad(set_to_none=True)
+    model(x).sum().backward()
+    assert all(torch.equal(g, p.grad) for g, p in zip(grads, params))
+
+
+def test_deferred_metrics_return_each_graphed_step_s_own_losses_in_order(monkeypatch):
+    """Where the step's losses are scalars a graph overwrites at each replay,
+    the metrics a step returns are its own: the loop drains step i's after
+    queuing nothing of step i + 1, and they read step i's losses."""
+    static = [torch.zeros(()) for _ in range(3)]  # overwritten by every replay
+
+    class Replaying:
+        calls = 0
+
+        def run(self, step, generator, batch):
+            Replaying.calls += 1
+            for i, x in enumerate(static):
+                x.fill_(10.0 * Replaying.calls + i)
+            return tuple(static)
+
+    class Optimizer:
+        def step(self):
+            pass
+
+        def zero_grad(self, set_to_none=True):
+            pass
+
+    monkeypatch.setattr(ttrain, "engages", lambda step, pick_point=None: True)
+    step = ttrain.TrainStep(None, None, Optimizer(), stop_token=0, unk_token=0, p_clip_emb_smi=0.0,
+                            token_entropy_unit=1.0, do_clip=True)
+    step.graphs = Replaying()
+    monkeypatch.delenv("TRAIN_SYNC_METRICS", raising=False)
+    seen = []
+    dm = ttrain.DeferredMetrics(lambda j, m, bsz: seen.append(
+        (j, float(m["loss"]), float(m["ar_loss"]), float(m["clip_loss"]))))
+    for i in range(4):
+        dm.drain()
+        dm.push(i, step(None, _graph_batch()), 4)
+    dm.drain()
+    assert seen == [(i, 10.0 * (i + 1), 10.0 * (i + 1) + 1, 10.0 * (i + 1) + 2) for i in range(4)]
+
+
+def test_graph_step_share_reads_the_steps_that_hold_a_replay(monkeypatch):
+    """The benchmark's `train.graph_step_share` on a synthetic profile:
+    the `train.step` ranges holding a `train.graph_replay` range over all
+    of them; None without a profile, and on a program without the training
+    graph's module (which has no such span)."""
+    import importlib.util
+
+    from portbench.harness import Trace, metric_reader
+
+    read = metric_reader("train.graph_step_share")
+    spans = [("coati.train.step", 0.0, 0.3), ("coati.train.forward_backward", 0.1, 0.3),
+             ("coati.train.graph_replay", 0.15, 0.2),
+             ("coati.train.step", 0.3, 0.6), ("coati.train.capture", 0.4, 0.55),
+             ("coati.train.step", 0.6, 0.9), ("coati.train.graph_replay", 0.7, 0.72)]
+    trace = Trace([("k4", 0.16, 0.3)], spans)
+    assert read({"trace": trace}) == pytest.approx(100 * 2 / 3)
+    assert read({"trace": Trace([], spans[:2])}) == 0.0
+    assert read({"trace": None}) is None
+    assert read({"trace": Trace([], [])}) is None
+    real = importlib.util.find_spec
+    monkeypatch.setattr(importlib.util, "find_spec", lambda name: None if "step_graph" in name
+                        else real(name))
+    assert read({"trace": trace}) is None
+
+
 # --------------------------------------------------------------- small tools
 
 

@@ -510,21 +510,24 @@ def test_k1_counts_a_captured_launch_at_each_replay(monkeypatch):
     exactly what its capture recorded; outside a recording a captured
     launch is counted nowhere."""
     from coati_tpu_torch.models import decode_graph
+    from coati_tpu_torch.ops.kernels import build
     from coati_tpu_torch.ops.kernels import decode_attention as k1
 
     capturing = [False]
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: capturing[0])
+    monkeypatch.setattr(build, "_stream_key", lambda: 7)  # one stream, on the CPU
     monkeypatch.setattr(k1.decode_attention, "launches", 0)
     monkeypatch.setattr(k1.decode_attention_quant, "launches", 0)
-    k1._count(k1.decode_attention_quant)
+    build.count_launch(k1.decode_attention_quant)
     assert k1.decode_attention_quant.launches == 1
     capturing[0] = True
-    k1._count(k1.decode_attention_quant)  # no recording: counted nowhere
-    with k1.recording_launches() as recorded:
+    build.count_launch(k1.decode_attention_quant)  # no recording: counted nowhere
+    with build.recording_launches() as recorded:
         for _ in range(3):
-            k1._count(k1.decode_attention_quant)
-        k1._count(k1.decode_attention)
-    assert recorded == {k1.decode_attention_quant: 3, k1.decode_attention: 1}
+            build.count_launch(k1.decode_attention_quant)
+        build.count_launch(k1.decode_attention)
+    assert recorded == {(k1.decode_attention_quant, "launches"): 3,
+                        (k1.decode_attention, "launches"): 1}
     assert (k1.decode_attention_quant.launches, k1.decode_attention.launches) == (1, 0)
     capturing[0] = False
 
