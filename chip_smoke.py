@@ -111,7 +111,7 @@ number is taken.
     The grande recipe in bf16 with `p_clip_emb_smi` 0.4 (the generator's
     draws matter), 12 steps over batches that cycle through three (T, N)
     widths (each: eager, capture, two replays), three models from one seed
-    in lockstep: two eager (inside `step_graph.eager()`) and one graphed,
+    in lockstep: two eager (inside `graphs.eager()`) and one graphed,
     each step started from the first eager model's state. The losses and
     the generators' states must be the same bits, and so every gradient
     but the point encoder's (K4's dc adds by float32 atomics, so those vary
@@ -893,10 +893,10 @@ def record_shapes(decode_calls=None):
     every decode step; with `decode_calls` (a Counter), also K1's calls by
     the form of the cache ("float32", "bfloat16", "int8/float32", ...).
     The wrappers still count their launches. Decode steps run eagerly
-    meanwhile (decode_graph.eager), and training steps (step_graph.eager),
-    so every step's call is seen."""
-    from coati_tpu_torch.models import decode_graph, transformer
-    from coati_tpu_torch.training import step_graph
+    meanwhile (graphs.eager), and training steps too, so every step's call
+    is seen."""
+    from coati_tpu_torch.models import transformer
+    from coati_tpu_torch.ops import graphs
 
     full, decode = set(), collections.defaultdict(set)
 
@@ -931,7 +931,7 @@ def record_shapes(decode_calls=None):
     transformer.decode_attention = decode_call(saved["decode_attention"], False)
     transformer.decode_attention_quant = decode_call(saved["decode_attention_quant"], True)
     try:
-        with decode_graph.eager(), step_graph.eager():
+        with graphs.eager():
             yield full, decode
     finally:
         for name, fn in saved.items():
@@ -1108,11 +1108,10 @@ def plain_versions():
     swaps the kernel wrappers that the transformer and EGNN modules call.
     The plain forwards are plain tensor code, so a backward through them is
     PyTorch's own autograd and reaches neither K4, K5b nor K2's replay.
-    Decode and training steps run eagerly meanwhile (decode_graph.eager,
-    step_graph.eager): a graph captured over the plain versions must not
-    outlive the swap."""
-    from coati_tpu_torch.models import decode_graph, egnn, transformer
-    from coati_tpu_torch.training import step_graph
+    Decode and training steps run eagerly meanwhile (graphs.eager): a
+    graph captured over the plain versions must not outlive the swap."""
+    from coati_tpu_torch.models import egnn, transformer
+    from coati_tpu_torch.ops import graphs
     from coati_tpu_torch.ops import attention as plain
     from coati_tpu_torch.ops import egnn_messages as plain_messages
 
@@ -1130,7 +1129,7 @@ def plain_versions():
     for module, name, fn in swaps:
         setattr(module, name, fn)
     try:
-        with decode_graph.eager(), step_graph.eager():
+        with graphs.eager():
             yield
     finally:
         for module, name, fn in saved:
@@ -1668,7 +1667,7 @@ def _tracer_totals() -> dict:
 
 
 def _graphed_vs_eager(label, model, tok, tokens, n_layer):
-    """A handle's round trips eagerly (decode_graph.eager) and through the
+    """A handle's round trips eagerly (graphs.eager) and through the
     decode graph, greedy and sampled under one generator seed. The graphed
     side first makes two greedy calls, which note the shape (unless met
     before) and capture its graph; the compared calls replay it: the same
@@ -1680,6 +1679,7 @@ def _graphed_vs_eager(label, model, tok, tokens, n_layer):
     calls)."""
     from coati_tpu_torch.common import tracing
     from coati_tpu_torch.models import decode_graph
+    from coati_tpu_torch.ops import graphs
 
     keep = _KeepRows(tok)
 
@@ -1689,7 +1689,7 @@ def _graphed_vs_eager(label, model, tok, tokens, n_layer):
             lambda: model.smiles_to_2d_batch(tokens, keep, k=k, inv_temp=2.0))
         return keep.rows, seconds, launches["decode_attention_quant"]
 
-    with decode_graph.eager():
+    with graphs.eager():
         eager = {k: run(k, 5) for k in (1, 100)}
     tracing.reset()
     tracing.start()
@@ -1699,10 +1699,10 @@ def _graphed_vs_eager(label, model, tok, tokens, n_layer):
     compared = _tracer_totals()
     tracing.stop()
     seconds = {"graphed": [run(100, 6 + i)[1] for i in range(3)]}
-    with decode_graph.eager():
+    with graphs.eager():
         seconds["eager"] = [run(100, 6 + i)[1] for i in range(3)]
     compute = model._compute.xformer
-    graph = next(iter(decode_graph._graphs[compute].values()))
+    graph = decode_graph.kept_graphs(compute)[0]
     steps = {k: graphed[k][2] // n_layer for k in graphed}
     setup_extra = sum(x[2] for x in setup) - 2 * eager[1][2]
     line = {"phase": "decode_graph", "model": label, "batch": len(tokens),
@@ -1742,6 +1742,7 @@ def _shape_churn(label, model, tok, tokens):
     captures and memory of each round."""
     from coati_tpu_torch.common import tracing
     from coati_tpu_torch.models import decode_graph
+    from coati_tpu_torch.ops import graphs
 
     keep = _KeepRows(tok)
 
@@ -1750,7 +1751,7 @@ def _shape_churn(label, model, tok, tokens):
             lambda: model.smiles_to_2d_batch(tokens[:b], keep, k=1, inv_temp=1.0))
         return keep.rows, seconds
 
-    with decode_graph.eager():
+    with graphs.eager():
         eager = {b: run(b) for b in CHURN_ROWS}
     torch.cuda.synchronize()
     reserved = torch.cuda.memory_reserved()
@@ -2221,7 +2222,8 @@ def phase_train_graph():
     a batch shape (training/step_graph.py) against the eager step, bit for
     bit but for K4's dc atomics; see the module docstring's `train_graph`."""
     from coati_tpu_torch.common import tracing
-    from coati_tpu_torch.training import step_graph, train
+    from coati_tpu_torch.ops import graphs
+    from coati_tpu_torch.training import train
     from coati_tpu_torch.training.config import grande_config
 
     steps = TRAIN_GRAPH_STEPS
@@ -2238,7 +2240,7 @@ def phase_train_graph():
         before = _counts()
         torch.cuda.synchronize()
         start = time.perf_counter()
-        with contextlib.nullcontext() if graphed else step_graph.eager():
+        with contextlib.nullcontext() if graphed else graphs.eager():
             metrics = step(gen, batch)
         host_s = time.perf_counter() - start
         torch.cuda.synchronize()
@@ -4753,10 +4755,9 @@ def phase_mla_moe():
     against eager, greedy and sampled: the same tokens and K6 launches.
     Returns (K6's launches on that path, its case at pos 249)."""
     from coati_tpu_torch.common import tracing
-    from coati_tpu_torch.models import decode_graph
     from coati_tpu_torch.models.api import COATI
     from coati_tpu_torch.models.coati import CoatiModel
-    from coati_tpu_torch.ops import moe
+    from coati_tpu_torch.ops import graphs, moe
     from coati_tpu_torch.ops.kernels.mla_decode import mla_decode
     from coati_tpu_torch.tokenizers import get_vocab
     from coati_tpu_torch.tokenizers.trie_tokenizer import TrieTokenizer
@@ -4792,7 +4793,7 @@ def phase_mla_moe():
         return keep.rows, time.perf_counter() - start, mla_decode.launches - before
 
     torch.cuda.reset_peak_memory_stats()
-    with decode_graph.eager():
+    with graphs.eager():
         eager = {k: run(k, 5) for k in (1, 100)}
     tracing.reset()
     tracing.start()

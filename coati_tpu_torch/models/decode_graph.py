@@ -1,97 +1,49 @@
 """The decode step's forward captured once as a CUDA graph and replayed for
-every token of `generate_tokens` (models/sampler.py).
+every token of `generate_tokens` (models/sampler.py), through ops/graphs.py.
 
-Launched eagerly, a decode step is some 845 small kernels, and the card
-waits on the host that launches them. The step does the same work at
-every position of a call: the shapes (B, cache width, layers), the
-weights and the cache buffers stay; only the input token and the
-position change. A `StepGraph` owns those two as static buffers (the
-token (B,) int64, the position one int32 on the card), the KV cache at
-the call's width and the step's float32 logits, and a graph of the
-trunk's `decode_step_at` (models/trunks.py) over them: the K/V write and the rotary
-row index by the device position (the rotary tables built once, at
-capture), K1 reads it on the card, and the graph's last node advances it
-by one. A step is then one copy of the sampled token and one replay; the
-host never writes the position between steps. Sampling, the `stopped`
-bookkeeping and the early-exit read stay eager in the sampler, so a
-caller's generator makes the same draws as on the eager path. The
-early-exit read depends on the sampling alone, so it is copied to pinned
-host memory before the replay and read after it (`post_stopped`,
-`read_stopped`): the host waits for the sampling, not for the step's
-forward, and launches the next step's sampling while the card runs the
-replay.
+A `StepGraph` holds the token (B,), the position (one int32 on the card),
+the KV cache at the call's width and the float32 logits as static
+buffers, and a graph of the trunk's `decode_step_at` over them that ends
+by advancing the position. Sampling stays in the sampler, so a generator
+makes the same draws as on the eager path; the early-exit read depends on
+the sampling alone, so it is copied to pinned memory before the replay and
+read after it. `stepper` hands the sampler a `StepGraph` or an `EagerStep`
+behind one interface; a graph engages (`eligible`) for tensors on a CUDA
+device and weights already in the compute dtype (`cast_floats` returned
+the caller's module, so the same tensors from call to call).
 
-When it engages (`step_graph`): tensors on a CUDA device, and weights
-already in the compute dtype (`cast_floats` returned the caller's module,
-so the weight tensors are the same from call to call). Everywhere else,
-CPU tensors and weights cast anew on every call among them, the eager
-`decode_step` runs, unchanged; so does every call that starts inside an
-`eager()` block, which a caller that swaps or instruments the step's
-kernel wrappers opens (a graph replays what its capture called).
-
-Shapes: a graph is keyed by (transformer config, B, width, device); the
-config fixes the cache's dtype and its scales'. A key is captured on its
-second use in the process, by any module: the first call of a shape
-decodes eagerly and only notes it (the last `SEEN_SHAPES` are kept), so
-a batch size met once, as a micro-batcher's odd flush may be, costs no
-capture and no cache. A module keeps at most `MAX_SHAPES` graphs, the
-least recently used going first. Each holds its cache, (L, 2, B, width,
-H, Dh) int8 and its (L, 2, B, width, H) scales under an int8 cache: 2.6
-GB for COATI grande at B 1024 and width 250, so a module holds at most
-four such caches beside its weights. Measured on an H100: round trips
-at B 1024, and calls cycling over six sizes from B 16 to 256, where
-every call captures and still beats the eager step; a micro-batcher's
-own traffic has not been.
-
-Lifetime: the graphs are kept per weights module through a weak
-reference, so they are freed with the model handle that holds the
-module. A graph is captured again when the module's weight tensors no
-longer sit where it read them (another address, shape, stride or dtype:
-`param.data = ...`, or a module moved off the card and back); weights
-changed in place are read as they are. A thread captures on one side
-stream a device, and runs one eager warm-up step there before its first
-capture of each key (it loads the kernels and cuBLAS's workspace for
-that stream; a real step on the card, which K1's counter counts); a
-later capture of the same key skips it. One call uses a graph at a time;
-a second thread's call with the same key meanwhile runs eagerly.
-
-Counters: K1's wrappers count the launches a capture records apart from
-`.launches` (`ops/kernels/build.recording_launches`), and a replay adds
-exactly those, so `.launches` counts what runs on the card. Those of
-`common.tracing`: `decode.graph_captures` (one a capture) and
-`decode.graph_steps` (replays, counted in the sampler).
+A graph is keyed by (transformer config, B, width, device). The memory of
+the last `SEEN_SHAPES` keys is one for all weights modules; a module keeps
+at most `MAX_SHAPES` graphs (weakly), each with its cache: 2.6 GB for
+COATI grande's int8 cache at B 1024 and width 250. Before a thread's first
+capture of a key it runs one eager step on its side stream, which K1
+counts, and throws it away: the capture comes before the call's prefill
+fills the graph's cache, so there is no real step to run yet. One call
+uses a graph at a time; another call of the key meanwhile runs eagerly.
+Spans and counters: `decode.capture`, `decode.graph_captures` (one a
+capture), `decode.graph_steps` (one a replay).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import threading
 import weakref
-from collections import OrderedDict
-from typing import Optional
-
 import torch
 from torch import nn
 
 from coati_tpu_torch.common import tracing
 from coati_tpu_torch.models import trunks
-from coati_tpu_torch.ops.kernels import build
+from coati_tpu_torch.ops import graphs
 
 MAX_SHAPES = 4  # graphs kept a weights module
 SEEN_SHAPES = 64  # keys remembered for the second-use rule
 
 _lock = threading.Lock()
-_graphs: "weakref.WeakKeyDictionary[nn.Module, OrderedDict]" = weakref.WeakKeyDictionary()
-_seen: OrderedDict = OrderedDict()  # keys met on the card, the newest last
-_eager_holds = 0  # open `eager()` blocks
-_local = threading.local()  # .streams: this thread's capture stream a device; .warmed: keys
-
-
-def _thread_capture_state() -> tuple:
-    """This thread's ({device: capture stream}, {keys warmed up on them})."""
-    if not hasattr(_local, "streams"):
-        _local.streams, _local.warmed = {}, set()
-    return _local.streams, _local.warmed
+_kept: "weakref.WeakKeyDictionary[nn.Module, graphs.LRU]" = weakref.WeakKeyDictionary()
+_seen = graphs.LRU(SEEN_SHAPES)
+_local = threading.local()  # .warmed: keys this thread has warmed up
 
 
 def _weights(params: nn.Module) -> list:
@@ -105,40 +57,43 @@ def _weights(params: nn.Module) -> list:
     return out
 
 
-def _layout(params: nn.Module) -> list:
-    """Where a graph reads each weight tensor: address, shape, stride,
-    dtype and device."""
-    return [(t.data_ptr(), t.shape, t.stride(), t.dtype, t.device) for t in _weights(params)]
-
-
-@contextlib.contextmanager
-def eager():
-    """Every decode call that starts inside the block, in any thread, runs
-    the eager step: for callers that swap or instrument the kernel wrappers
-    the step calls, which a graph would bypass at replay (or keep past the
-    block), and for comparisons with the eager path."""
-    global _eager_holds
-    with _lock:
-        _eager_holds += 1
-    try:
-        yield
-    finally:
-        with _lock:
-            _eager_holds -= 1
-
-
 def eligible(params: nn.Module, compute: nn.Module, device: torch.device) -> bool:
     """Whether a decode over `compute` (`cast_floats(params, ...)`) on
-    `device` may run through a graph: a CUDA device, weights already in the
-    compute dtype, and no `eager()` block open."""
-    return torch.device(device).type == "cuda" and compute is params and not _eager_holds
+    `device` may run through a graph (see the module's docstring)."""
+    return torch.device(device).type == "cuda" and compute is params and graphs.allowed()
+
+
+class EagerStep:
+    """`decode_step` at a host position, over a cache made when the prefill
+    asks for it (inside its span); the stop read waits for the step."""
+
+    def __init__(self, compute: nn.Module, cfg, batch: int, width: int, device):
+        self.compute, self.cfg, self.trunk = compute, cfg, trunks.of(cfg)
+        self.new_cache = functools.partial(self.trunk.make_empty_cache, cfg, batch, width=width,
+                                           device=device)
+
+    @functools.cached_property
+    def cache(self):
+        return self.new_cache()
+
+    def start(self, pos: int) -> None:
+        self.pos = pos
+
+    def post_stopped(self, stopped: torch.Tensor) -> None:
+        self.stopped = stopped
+
+    def read_stopped(self) -> bool:
+        return bool(self.stopped.all())
+
+    def step(self, token: torch.Tensor) -> torch.Tensor:
+        logits, _ = self.trunk.decode_step(self.compute, self.cfg, token, self.pos, self.cache)
+        self.pos += 1
+        return logits.float()
 
 
 class StepGraph:
-    """One decode step over static buffers, captured at construction (see
-    the module's docstring). `start(pos)` sets the position of the first
-    step; `step(token)` runs one and returns the (B, V) float32 logits,
-    a buffer the next step overwrites."""
+    """The graphed stepper: one decode step over static buffers, captured at
+    construction; `step(token)` returns logits the next step overwrites."""
 
     def __init__(self, params: nn.Module, cfg, batch: int, width: int, device):
         device = torch.device(device)
@@ -146,35 +101,18 @@ class StepGraph:
         self.token = torch.zeros(batch, dtype=torch.long, device=device)
         self.pos = torch.zeros(1, dtype=torch.int32, device=device)
         self.tables = trunks.of(cfg).decode_tables(cfg, device)
-        self.layout = _layout(params)
+        self.layout = graphs.layout(_weights(params))
         self.lock = threading.Lock()
-        self.all_stopped = torch.zeros((), dtype=torch.bool, pin_memory=True)
+        self.all_stopped = torch.zeros((), dtype=torch.bool, pin_memory=device.type == "cuda")
         self.posted = torch.cuda.Event()
-        self.graph = torch.cuda.CUDAGraph()
-        streams, warmed = _thread_capture_state()
+        warmed = _local.__dict__.setdefault("warmed", set())
         key = (cfg, batch, width, str(device))
-        with torch.cuda.device(device):
-            current = torch.cuda.current_stream(device)
-            side = streams.get(device)
-            if side is None:
-                side = streams[device] = torch.cuda.Stream(device)
-            side.wait_stream(current)
-            with torch.cuda.stream(side):
-                if key not in warmed:
-                    # one eager step the first time this thread captures the
-                    # shape: it loads the kernels and warms cuBLAS on `side`
-                    self._forward(params, cfg)
-                    warmed.add(key)
-                # torch.cuda.graph's capture without the gc.collect() and
-                # empty_cache() it runs first; K1's launches in it are
-                # recorded for the replays to count
-                with build.recording_launches() as self.launches:
-                    self.graph.capture_begin(capture_error_mode="thread_local")
-                    try:
-                        self.logits = self._forward(params, cfg)
-                    finally:
-                        self.graph.capture_end()
-            current.wait_stream(side)
+        with graphs.side_stream(device):
+            if key not in warmed:
+                self._forward(params, cfg)
+                warmed.add(key)
+            self.graph, self.logits, self.launches = graphs.capture(
+                lambda: self._forward(params, cfg))
         self.bytes = sum(x.numel() * x.element_size() for x in (
             self.cache.data, self.cache.scale, self.token, self.pos, self.logits, *self.tables)
             if x is not None)
@@ -187,93 +125,77 @@ class StepGraph:
         return out
 
     def current(self, params: nn.Module) -> bool:
-        """Whether `params`' weight tensors still sit where the graph reads
-        them."""
-        return _layout(params) == self.layout
+        """Whether `params`' tensors still sit where the graph reads them."""
+        return graphs.layout(_weights(params)) == self.layout
 
     def start(self, pos: int) -> None:
         self.pos.fill_(pos)
 
     def post_stopped(self, stopped: torch.Tensor) -> None:
-        """Start copying whether every row has stopped to pinned host
-        memory, behind the sampling that updated `stopped`: called before
-        the step's replay, so `read_stopped` need not wait for it."""
+        """Start copying whether every row has stopped to pinned memory,
+        behind the sampling and before the replay."""
         self.all_stopped.copy_(stopped.all(), non_blocking=True)
         self.posted.record()
 
     def read_stopped(self) -> bool:
-        """What `post_stopped` copied, once the copy is done; the replay
-        after it runs on while the host launches the next step."""
+        """What `post_stopped` copied, once copied; the replay runs on."""
         self.posted.synchronize()
         return bool(self.all_stopped)
 
     def step(self, token: torch.Tensor) -> torch.Tensor:
         self.token.copy_(token)
-        self.graph.replay()
-        build.add_launches(self.launches)
+        graphs.replay(self.graph, self.launches)
+        tracing.count("decode.graph_steps")
         return self.logits
 
 
-def _kept(params: nn.Module) -> OrderedDict:
-    kept = _graphs.get(params)
-    if kept is None:
-        kept = _graphs[params] = OrderedDict()
-    return kept
-
-
-def _acquire(params, cfg, batch: int, width: int, device) -> Optional[StepGraph]:
-    """The graph of the key, locked for this call (captured if it has
-    none, or none over the module's current weights); None when the key is
-    met for the first time, or another call holds its graph."""
+def _acquire(params, cfg, batch: int, width: int, device) -> StepGraph | None:
+    """The key's graph, locked for this call (captured if none reads the
+    current weights); None at the key's first use, or while another holds it."""
     key = (cfg, batch, width, str(device))
     with _lock:
-        kept = _kept(params)
+        kept = _kept.setdefault(params, graphs.LRU(MAX_SHAPES))
         graph = kept.get(key)
-        if graph is not None:
-            if not graph.lock.acquire(blocking=False):
+        if graph is None:
+            if not _seen.met_before(key):
                 return None
-            kept.move_to_end(key)
-        elif key in _seen:
-            _seen.move_to_end(key)
-        else:
-            _seen[key] = None
-            while len(_seen) > SEEN_SHAPES:
-                _seen.popitem(last=False)
+        elif not graph.lock.acquire(blocking=False):
             return None
     if graph is not None:
         if graph.current(params):
             return graph
         graph.lock.release()
-        with _lock:
-            if kept.get(key) is graph:
-                del kept[key]
     with tracing.span("decode.capture"):
         graph = StepGraph(params, cfg, batch, width, device)
     tracing.count("decode.graph_captures")
     graph.lock.acquire()
     with _lock:
-        kept[key] = graph
-        while len(kept) > MAX_SHAPES:  # a call holding the one let go keeps it to its end
-            kept.popitem(last=False)
+        kept.keep(key, graph)
     return graph
 
 
 @contextlib.contextmanager
-def step_graph(params: nn.Module, compute: nn.Module, cfg, batch: int, width: int, device):
-    """The StepGraph a decode of `batch` rows over a cache of `width`
-    positions runs through, held for the block; None where the eager step
-    runs (see `eligible` and `_acquire`)."""
-    graph = _acquire(compute, cfg, batch, width, device) if eligible(
+def stepper(params: nn.Module, compute: nn.Module, cfg, batch: int, first: int, width: int,
+            device):
+    """The stepper of a decode from position `first` over a cache of `width`,
+    held for the block: a StepGraph where one runs, else an EagerStep."""
+    graph = _acquire(compute, cfg, batch, width, device) if width > first and eligible(
         params, compute, device) else None
+    if graph is None:
+        yield EagerStep(compute, cfg, batch, width, device)
+        return
     try:
         yield graph
     finally:
-        if graph is not None:
-            graph.lock.release()
+        graph.lock.release()
+
+
+def kept_graphs(params: nn.Module) -> list:
+    """The StepGraphs `params` keeps, the least recently used first."""
+    with _lock:
+        return list(_kept[params].items.values()) if params in _kept else []
 
 
 def kept_shapes(params: nn.Module) -> int:
     """How many graphs `params` keeps."""
-    with _lock:
-        kept = _graphs.get(params)
-        return 0 if kept is None else len(kept)
+    return len(kept_graphs(params))

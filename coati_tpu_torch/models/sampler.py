@@ -13,7 +13,6 @@ Sampling distribution: multinomial(softmax(top-k logits * inv_temp)).
 
 from __future__ import annotations
 
-import contextlib
 from typing import Optional, Sequence
 
 import torch
@@ -35,9 +34,9 @@ def auto_stage_widths(prefill_len: int, total_len: int) -> Optional[tuple]:
     return tuple(widths) if len(widths) > 1 else None
 
 
-def _check_stage_widths(stage_widths, prefill_len: int, total_len: int) -> tuple:
+def _check_stage_widths(stage_widths, prefill_len: int, total_len: int) -> None:
     if stage_widths is None:
-        stage_widths = (total_len,)
+        return
     stage_widths = tuple(min(w, total_len) for w in stage_widths)
     if stage_widths[-1] != total_len or any(
         stage_widths[i] >= stage_widths[i + 1] for i in range(len(stage_widths) - 1)
@@ -45,7 +44,6 @@ def _check_stage_widths(stage_widths, prefill_len: int, total_len: int) -> tuple
         raise ValueError(f"stage_widths {stage_widths} must increase and end at {total_len}")
     if prefill_len > stage_widths[0]:
         raise ValueError(f"prefill_len {prefill_len} exceeds the first stage {stage_widths[0]}")
-    return stage_widths
 
 
 def live_row_steps(tokens: torch.Tensor, stop_token: int, first: int) -> int:
@@ -80,30 +78,27 @@ def generate_tokens(
     stage_widths keeps the JAX package's meaning and results: there the
     cache grows through the stages, because its XLA decode read the whole
     cache width every step. The port's decode kernel reads only positions
-    [0, pos], so one cache of the final width gives the same tokens; it is
-    allocated once, and the stages only bound the loop."""
+    [0, pos], so one cache of the final width and one loop give the same
+    tokens; the stages are only checked."""
     if not 1 <= prefill_len <= total_len <= cfg.n_seq:
         raise ValueError(
             f"need 1 <= prefill_len ({prefill_len}) <= total_len ({total_len}) <= n_seq ({cfg.n_seq})"
         )
-    stage_widths = _check_stage_widths(stage_widths, prefill_len, total_len)
+    _check_stage_widths(stage_widths, prefill_len, total_len)
     b = prefix_tokens.shape[0]
     device = prefix_tokens.device
     compute = cast_floats(params, cfg.compute_dtype)  # once, not per step
     trunk = trunks.of(cfg)
-    graphed = decode_graph.step_graph(params, compute, cfg, b, total_len, device) \
-        if total_len > prefill_len else contextlib.nullcontext()
-    with graphed as graph:
+    with decode_graph.stepper(params, compute, cfg, b, prefill_len, total_len,
+                              device) as stepper:
         with tracing.span("prefill"):
             tokens = prefix_tokens.to(torch.long).clone()
             prefix_len = prefix_len.to(device)
-            cache = graph.cache if graph is not None else \
-                trunk.make_empty_cache(cfg, b, width=total_len, device=device)
-            hidden, cache = trunk.prefill(
+            hidden, _ = trunk.prefill(
                 compute, cfg, tokens[:, :prefill_len],
                 injection=inj_payload,
                 inject_token=inject_token if inj_payload is not None else None,
-                cache=cache,
+                cache=stepper.cache,
             )
             # distribution for the token at position `prefill_len`
             last_logits = linear(hidden[:, -1], compute.lm_head.weight).float()
@@ -118,34 +113,25 @@ def generate_tokens(
             with tracing.span("decode.stop_read"):
                 done = bool(stopped.all())
             pos = prefill_len
-            if graph is not None:
-                graph.start(pos)
-            for width in stage_widths:
-                while pos < width and not done:
-                    with tracing.span("decode.step"):
-                        with tracing.span("decode.sample"):
-                            sampled = sample_top_k(generator, last_logits, k, inv_temp,
-                                                   top_p=top_p)
-                            sampled = torch.where(stopped, pad_token, sampled)
-                            tok = torch.where(pos < prefix_len, tokens[:, pos], sampled)
-                            tokens[:, pos] = tok
-                            stopped |= tok == stop_token
-                        with tracing.span("decode.forward"):
-                            if graph is None:
-                                logits, cache = trunk.decode_step(compute, cfg, tok, pos, cache)
-                                last_logits = logits.float()
-                            else:  # the graph advances its own position
-                                graph.post_stopped(stopped)
-                                last_logits = graph.step(tok)
-                        pos += 1
-                        with tracing.span("decode.stop_read"):
-                            done = bool(stopped.all()) if graph is None else graph.read_stopped()
+            stepper.start(pos)
+            while pos < total_len and not done:
+                with tracing.span("decode.step"):
+                    with tracing.span("decode.sample"):
+                        sampled = sample_top_k(generator, last_logits, k, inv_temp, top_p=top_p)
+                        sampled = torch.where(stopped, pad_token, sampled)
+                        tok = torch.where(pos < prefix_len, tokens[:, pos], sampled)
+                        tokens[:, pos] = tok
+                        stopped |= tok == stop_token
+                    with tracing.span("decode.forward"):
+                        stepper.post_stopped(stopped)
+                        last_logits = stepper.step(tok)
+                    pos += 1
+                    with tracing.span("decode.stop_read"):
+                        done = stepper.read_stopped()
 
             # force [STOP] at the last written position for rows that never stopped
             last = max(pos - 1, 0)
             tokens[:, last] = torch.where(stopped, tokens[:, last], stop_token)
-    if graph is not None:
-        tracing.count("decode.graph_steps", pos - prefill_len)
     if tracing.started():
         tracing.count("decode.row_steps", b * (pos - prefill_len))
         tracing.count("decode.live_row_steps",

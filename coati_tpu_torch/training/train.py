@@ -79,7 +79,7 @@ from coati_tpu_torch.training.config import TrainConfig
 from coati_tpu_torch.training.diagnostics import step_timer
 from coati_tpu_torch.training.flops import coati_train_step_model_flops
 from coati_tpu_torch.training.logger import COATILogger
-from coati_tpu_torch.training.step_graph import StepGraphs, engages, forward_backward
+from coati_tpu_torch.training.step_graph import StepGraphs
 
 
 class ClippedAdamW(torch.optim.AdamW):
@@ -369,10 +369,7 @@ class TrainStep:
     def __call__(self, generator, batch: Dict[str, torch.Tensor], pick_point=None):
         self.parallel.before_forward()
         if self.is_training:
-            if engages(self, pick_point):
-                loss, ar, cl = self.graphs.run(self, generator, batch)
-            else:
-                loss, ar, cl = forward_backward(self, generator, batch, pick_point)
+            loss, ar, cl = self.graphs.run(self, generator, batch, pick_point)
             self.update()
         else:
             with torch.no_grad():

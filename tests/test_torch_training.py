@@ -490,10 +490,11 @@ def test_training_step_stays_eager_on_the_cpu_and_under_a_mesh_placement():
     the step's numbers are those of the eager forward, backward and update.
     The engagement rule itself, on a step that reports a CUDA parameter:
     only a training step with no placement, no given choice and no
-    `eager()` block open engages."""
+    `graphs.eager()` block open engages."""
     from types import SimpleNamespace
 
     from coati_tpu_torch.common import tracing
+    from coati_tpu_torch.ops import graphs
     from coati_tpu_torch.training import step_graph
 
     tok, _, _, _, _, model, tstep, teval = _step_pair(seed=77)
@@ -512,7 +513,7 @@ def test_training_step_stays_eager_on_the_cpu_and_under_a_mesh_placement():
     finally:
         tracing.stop()
     assert _graph_counters() == {"train.graph_captures": 0, "train.graph_steps": 0}
-    assert not tstep.graphs.cache.seen and not tstep.graphs.cache.graphs
+    assert not tstep.graphs.seen.items and not tstep.graphs.kept.items
     assert all(torch.equal(a, b) for a, b in zip(model.parameters(), twin.parameters()))
 
     card = SimpleNamespace(device=torch.device("cuda"))
@@ -520,7 +521,7 @@ def test_training_step_stays_eager_on_the_cpu_and_under_a_mesh_placement():
                               model=SimpleNamespace(parameters=lambda: iter([card])))
     assert step_graph.engages(on_card)
     assert not step_graph.engages(on_card, pick_point=torch.ones(8, 1, dtype=torch.bool))
-    with step_graph.eager():
+    with graphs.eager():
         assert not step_graph.engages(on_card)
     assert step_graph.engages(on_card)
     mesh = SimpleNamespace(axes=SimpleNamespace(data_group=None, n_data=2))
@@ -538,14 +539,21 @@ def _graph_batch(b=4, t=16, n=8, coords=torch.float32):
     return batch
 
 
-def test_graph_cache_captures_on_second_use_keeps_the_recently_used_and_keys_by_the_inputs():
+def test_graph_cache_captures_on_second_use_keeps_the_recently_used_and_keys_by_the_inputs(
+        monkeypatch):
     """The cache's bookkeeping, driven through `StepGraphs.run` with the
-    capture stood in for: a key's first step runs eagerly, its second
-    captures, later ones replay; at most `most` graphs are kept, the least
-    recently used going first, and a key let go is captured again at its
-    next use. The key is the five inputs' shapes and dtypes: values do not
-    enter it, and any input's width or dtype does."""
+    card-bound pieces of ops/graphs.py stood in for: a key's first step
+    runs eagerly, its second eagerly and then captures, later ones replay;
+    at most MAX_SHAPES graphs are kept, the least recently used going
+    first, and a key let go is captured again at its next use. The key is
+    the five inputs' shapes and dtypes: values do not enter it, and any
+    input's width or dtype does. A step that does not engage runs eagerly
+    and notes no key."""
+    import contextlib as _contextlib
+    from types import SimpleNamespace
+
     from coati_tpu_torch.training import step_graph
+    from tests import graph_stand_ins
 
     k = step_graph.key_of
     base = _graph_batch()
@@ -555,48 +563,38 @@ def test_graph_cache_captures_on_second_use_keeps_the_recently_used_and_keys_by_
     others.append(dict(base, y_next=torch.zeros((4, 17), dtype=torch.long)))
     assert len({k(base), *(k(x) for x in others)}) == 6
 
+    stand_ins = graph_stand_ins.install(monkeypatch)
     events = []
 
-    class Captured:
-        def __init__(self, step, generator, batch, pool, side):
-            self.key = k(batch)
-            self.first = ("captured", self.key)
-            events.append(("capture", self.key))
+    def forward_backward(step, gen, batch, pick_point=None):
+        events.append((stand_ins.phase, k(batch)))
+        return torch.zeros(()), torch.zeros(()), torch.zeros(())
 
-        def current(self, step, generator):
-            return True
-
-        def replay(self, batch):
-            events.append(("replay", self.key))
-            return ("replayed", self.key)
-
-    import contextlib as _contextlib
-    from unittest import mock
-
-    graphs = step_graph.StepGraphs(most=2, seen=8)
-    with mock.patch.object(step_graph, "TrainGraph", Captured), \
-            mock.patch.object(step_graph, "forward_backward",
-                              lambda step, gen, batch: events.append(("eager", k(batch)))), \
-            mock.patch.object(torch.cuda, "graph_pool_handle", lambda: "pool"), \
-            mock.patch.object(torch.cuda, "Stream", lambda device: "side"), \
-            mock.patch.object(torch.cuda, "device", lambda device: _contextlib.nullcontext()):
-        a, b, c = _graph_batch(t=16), _graph_batch(t=32), _graph_batch(t=48)
-        for batch in (a, a, a, b, b, a, c, c, b, b, c, a, a):
-            graphs.run(None, None, batch)
+    engaged = [True]
+    monkeypatch.setattr(step_graph, "forward_backward", forward_backward)
+    monkeypatch.setattr(step_graph, "engages", lambda step, pick_point=None: engaged[0])
+    monkeypatch.setattr(step_graph, "MAX_SHAPES", 2)
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: "pool")
+    monkeypatch.setattr(torch.cuda, "device", lambda device: _contextlib.nullcontext())
+    step = SimpleNamespace(model=torch.nn.Linear(2, 2))
+    graphs = step_graph.StepGraphs()
+    a, b, c = _graph_batch(t=16), _graph_batch(t=32), _graph_batch(t=48)
+    for batch in (a, a, a, b, b, a, c, c, b, b, c, a, a):
+        graphs.run(step, None, batch, None)
     ka, kb, kc = k(a), k(b), k(c)
     assert events == [
-        ("eager", ka), ("capture", ka), ("replay", ka),
-        ("eager", kb), ("capture", kb), ("replay", ka),
-        ("eager", kc), ("capture", kc),  # b is now the least recently used: let go
-        ("capture", kb),  # met before: captured again at once; a let go
+        ("eager", ka), ("eager", ka), ("capture", ka), ("replay", ka),
+        ("eager", kb), ("eager", kb), ("capture", kb), ("replay", ka),
+        ("eager", kc), ("eager", kc), ("capture", kc),  # b is now the least recently used
+        ("eager", kb), ("capture", kb),  # met before: captured again at once; a let go
         ("replay", kb), ("replay", kc),
-        ("capture", ka), ("replay", ka),
+        ("eager", ka), ("capture", ka), ("replay", ka),
     ]
-    assert list(graphs.cache.graphs) == [kc, ka]
-
-    cache = step_graph.ShapeCache(most=3, seen=2)
-    assert [cache.met_before(x) for x in ("p", "q", "r", "p", "r")] == [
-        False, False, False, False, True]  # only the last two keys are remembered
+    assert list(graphs.kept.items) == [kc, ka] and len(stand_ins.made) == 5
+    engaged[0] = False
+    del events[:]
+    graphs.run(step, None, _graph_batch(t=64), None)
+    assert events == [("eager", k(_graph_batch(t=64)))] and len(graphs.seen.items) == 3
 
 
 def test_capture_runs_over_fresh_leaves_that_share_the_parameters_memory():
@@ -639,7 +637,7 @@ def test_deferred_metrics_return_each_graphed_step_s_own_losses_in_order(monkeyp
     class Replaying:
         calls = 0
 
-        def run(self, step, generator, batch):
+        def run(self, step, generator, batch, pick_point):
             Replaying.calls += 1
             for i, x in enumerate(static):
                 x.fill_(10.0 * Replaying.calls + i)
@@ -652,7 +650,6 @@ def test_deferred_metrics_return_each_graphed_step_s_own_losses_in_order(monkeyp
         def zero_grad(self, set_to_none=True):
             pass
 
-    monkeypatch.setattr(ttrain, "engages", lambda step, pick_point=None: True)
     step = ttrain.TrainStep(None, None, Optimizer(), stop_token=0, unk_token=0, p_clip_emb_smi=0.0,
                             token_entropy_unit=1.0, do_clip=True)
     step.graphs = Replaying()

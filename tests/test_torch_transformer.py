@@ -336,13 +336,13 @@ def test_generate_tokens_on_the_cpu_keeps_the_eager_loops_tokens(kv_dtype, monke
     """On CPU tensors no graph is captured, and generate_tokens gives the
     eager loop's tokens for one generator seed, sampled (k 5) and with
     rows behind prefixes of different lengths."""
-    from coati_tpu_torch.models import decode_graph
     from coati_tpu_torch.models.sampler import generate_tokens
+    from coati_tpu_torch.ops import graphs
 
     def no_capture(*args, **kwargs):
         raise AssertionError("a decode graph was captured on the CPU")
 
-    monkeypatch.setattr(decode_graph, "StepGraph", no_capture)
+    monkeypatch.setattr(graphs, "capture", no_capture)
     _, _, model, tcfg = _pair(2, 64, kv_dtype=kv_dtype, seed=5)
     b, total = 4, 24
     tokens = torch.zeros(b, total, dtype=torch.long)
@@ -361,12 +361,13 @@ def test_generate_tokens_on_the_cpu_keeps_the_eager_loops_tokens(kv_dtype, monke
 def test_the_decode_graph_engages_only_for_cuda_weights_in_the_compute_dtype():
     """The rule of decode_graph.eligible: a CUDA device, weights that
     cast_floats hands back as they are (so the same tensors from call to
-    call), and no `eager()` block open (in any thread); CPU tensors,
+    call), and no `graphs.eager()` block open (in any thread); CPU tensors,
     weights cast anew on each call, or a call inside such a block take the
     eager step."""
     import threading
 
     from coati_tpu_torch.models import decode_graph
+    from coati_tpu_torch.ops import graphs
     from coati_tpu_torch.ops.layers import cast_floats
 
     cuda, cpu = torch.device("cuda", 0), torch.device("cpu")
@@ -380,8 +381,8 @@ def test_the_decode_graph_engages_only_for_cuda_weights_in_the_compute_dtype():
     assert cast_floats(recast, torch.bfloat16) is recast  # a handle's compute copy
     assert decode_graph.eligible(recast, recast, cuda)
     seen = []
-    with decode_graph.eager():
-        with decode_graph.eager():
+    with graphs.eager():
+        with graphs.eager():
             assert not decode_graph.eligible(recast, recast, cuda)
         other = threading.Thread(target=lambda: seen.append(
             decode_graph.eligible(recast, recast, cuda)))
@@ -392,33 +393,22 @@ def test_the_decode_graph_engages_only_for_cuda_weights_in_the_compute_dtype():
 
 
 def _stand_in_captures(monkeypatch):
-    """decode_graph with a stand-in for the capture, which needs a card, and
-    no shape met yet; returns the list of stand-ins made."""
-    import threading
-    from collections import OrderedDict
-
+    """decode_graph with the card-bound pieces of ops/graphs.py stood in
+    for (tests/graph_stand_ins.py), and no shape met yet; returns the
+    stand-ins, whose `made` lists the graphs captured."""
     from coati_tpu_torch.models import decode_graph
+    from coati_tpu_torch.ops import graphs
+    from tests import graph_stand_ins
 
-    made = []
-
-    class Captured:
-        current = decode_graph.StepGraph.current
-
-        def __init__(self, params, cfg, batch, width, device):
-            self.lock, self.batch, self.holder = threading.Lock(), batch, None
-            self.layout = decode_graph._layout(params)
-            made.append(self)
-
-    monkeypatch.setattr(decode_graph, "StepGraph", Captured)
-    monkeypatch.setattr(decode_graph, "_seen", OrderedDict())
-    return made
+    monkeypatch.setattr(decode_graph, "_seen", graphs.LRU(decode_graph.SEEN_SHAPES))
+    return graph_stand_ins.install(monkeypatch)
 
 
 def _acquire_once(model, tcfg, batch):
     """A call's graph of the shape (None where it runs eagerly), given back."""
     from coati_tpu_torch.models import decode_graph
 
-    graph = decode_graph._acquire(model, tcfg, batch, 16, "cuda:0")
+    graph = decode_graph._acquire(model, tcfg, batch, 16, "cpu")
     if graph is not None:
         graph.lock.release()
     return graph
@@ -435,8 +425,10 @@ def test_kept_decode_graphs_are_bounded_reused_and_freed_with_the_weights(monkey
     from torch import nn
 
     from coati_tpu_torch.models import decode_graph
+    from coati_tpu_torch.ops import graphs
 
-    made = _stand_in_captures(monkeypatch)
+    stand_ins = _stand_in_captures(monkeypatch)
+    made = stand_ins.made
     _, _, model, tcfg = _pair(2, 64)
     n = decode_graph.MAX_SHAPES
 
@@ -448,18 +440,21 @@ def test_kept_decode_graphs_are_bounded_reused_and_freed_with_the_weights(monkey
     assert acquire(1) is first[0] and len(made) == n  # kept, and now the most recent
     acquire(n + 1)  # evicts batch 2, the least recently used
     assert decode_graph.kept_shapes(model) == n
+    assert [g.token.shape[0] for g in decode_graph.kept_graphs(model)] == [
+        *range(3, n + 1), 1, n + 1]
     assert acquire(1) is first[0] and acquire(2) is not first[1]
-    held = decode_graph._acquire(model, tcfg, 1, 16, "cuda:0")
-    assert held is first[0] and decode_graph._acquire(model, tcfg, 1, 16, "cuda:0") is None
+    held = decode_graph._acquire(model, tcfg, 1, 16, "cpu")
+    assert held is first[0] and decode_graph._acquire(model, tcfg, 1, 16, "cpu") is None
     held.lock.release()
     model.lm_head.weight = nn.Parameter(model.lm_head.weight.clone(), requires_grad=False)
     again = acquire(1)
-    assert again is not first[0] and again.layout == decode_graph._layout(model)
-    before = len(decode_graph._graphs)
+    assert again is not first[0] and again.layout == graphs.layout(decode_graph._weights(model))
+    before = len(decode_graph._kept)
     ref = weakref.ref(model)
+    stand_ins.release()
     del model, first, held, again
     gc.collect()
-    assert ref() is None and len(decode_graph._graphs) == before - 1
+    assert ref() is None and len(decode_graph._kept) == before - 1
 
 
 def test_a_decode_graph_is_captured_on_the_second_use_of_its_shape(monkeypatch):
@@ -467,17 +462,18 @@ def test_a_decode_graph_is_captured_on_the_second_use_of_its_shape(monkeypatch):
     a shape runs eagerly, a second module's first call of a shape met before
     captures; the last SEEN_SHAPES keys are remembered."""
     from coati_tpu_torch.models import decode_graph
+    from coati_tpu_torch.ops import graphs
 
-    made = _stand_in_captures(monkeypatch)
-    monkeypatch.setattr(decode_graph, "SEEN_SHAPES", 3)
+    made = _stand_in_captures(monkeypatch).made
+    monkeypatch.setattr(decode_graph, "_seen", graphs.LRU(3))
     _, _, model, tcfg = _pair(2, 64)
     _, _, other, _ = _pair(2, 64, seed=1)
     assert _acquire_once(model, tcfg, 8) is None and made == []
-    assert _acquire_once(model, tcfg, 8) is made[0]
-    assert _acquire_once(other, tcfg, 8) is made[1]  # the shape, not the module, was met
+    assert _acquire_once(model, tcfg, 8).graph is made[0]
+    assert _acquire_once(other, tcfg, 8).graph is made[1]  # the shape, not the module, was met
     for b in (1, 2, 3):
         assert _acquire_once(model, tcfg, b) is None
-    assert _acquire_once(other, tcfg, 1) is made[2]  # still remembered
+    assert _acquire_once(other, tcfg, 1).graph is made[2]  # still remembered
     assert _acquire_once(other, tcfg, 9) is None
     assert _acquire_once(other, tcfg, 2) is None  # forgotten: 2 was the oldest of 3
     assert len(made) == 3
@@ -488,11 +484,11 @@ def test_a_decode_graph_follows_its_weights_storage_not_their_objects(monkeypatc
     Parameter object but moves its storage, so the next call captures
     anew; a weight changed in place stays where the graph reads it and
     keeps the graph."""
-    made = _stand_in_captures(monkeypatch)
+    made = _stand_in_captures(monkeypatch).made
     _, _, model, tcfg = _pair(2, 64)
     _acquire_once(model, tcfg, 4)
     graph = _acquire_once(model, tcfg, 4)
-    assert graph is made[0]
+    assert graph.graph is made[0]
     with torch.no_grad():
         model.lm_head.weight.mul_(2.0)
     assert _acquire_once(model, tcfg, 4) is graph
@@ -561,10 +557,10 @@ def test_decode_graphs_are_held_by_one_call_at_a_time_under_threads(monkeypatch)
 
     def work(i):
         for j in range(150):
-            graph = decode_graph._acquire(model, tcfg, 1 + (i + j) % 6, 16, "cuda:0")
+            graph = decode_graph._acquire(model, tcfg, 1 + (i + j) % 6, 16, "cpu")
             if graph is None:
                 continue  # held by another call: that call decodes eagerly
-            if graph.holder is not None:
+            if getattr(graph, "holder", None) is not None:
                 clashes.append((i, j))
             graph.holder = i
             taken.append(1)
