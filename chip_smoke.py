@@ -91,6 +91,22 @@ number is taken.
     Then (the trained document) greedy calls cycling over six batch sizes
     from 16 to 256, three rounds, against eager: the same tokens; each
     round's seconds and captures, and the memory reserved and at peak.
+    top_k (after decode_graph; `python3 chip_smoke.py top_k` builds and
+    runs it alone, about a minute): K7 (the sampler's exact top k,
+    ops/kernels/top_k.py) against the stable sort, its plain version, bit
+    for bit in values and indices, on rows of N(0, 9) among which the first
+    are hard (all equal, all -inf, five levels, +0.0 / -0.0 across the cut,
+    NaN of both signs and two payloads with infinities, ascending, a tie of
+    seven across the 100th place): B 1024 x 13,603 and x 4,266 at k 100
+    (timed beside the byte bound, the sort and torch.topk), the serving
+    engine's 65 rows, 3-D and padded rows, widths 1,000, 128 and 100, the
+    widest row (32,768) at k 128, and k 2; the sort past k 128 at k 1,000
+    (timed), the whole row at 4,266 and 32,768, and k 129; k past the
+    width, k 0, bfloat16, strided rows and a row of 32,769 raise
+    ValueError. Then the trained document's
+    production round trip of 1,024 SMILES at k 100 under three seeds,
+    through K7 and through the stable sort: the same tokens, one K7 launch
+    a decode step, and a profile.
     train: train_autoencoder with the grande recipe as it is written (16 x
     256 transformer, 5 x 256 EGNN, bf16 over float32 masters, batch 160,
     n_seq 80, remat of the transformer blocks, every row canonicalized, 30%
@@ -1105,15 +1121,17 @@ def phase_routing():
 @contextlib.contextmanager
 def plain_versions():
     """Route the model to the kernels' plain versions, for comparison:
-    swaps the kernel wrappers that the transformer and EGNN modules call.
+    swaps the kernel wrappers that the transformer and EGNN modules and the
+    sampler's top k call.
     The plain forwards are plain tensor code, so a backward through them is
     PyTorch's own autograd and reaches neither K4, K5b nor K2's replay.
     Decode and training steps run eagerly meanwhile (graphs.eager): a
     graph captured over the plain versions must not outlive the swap."""
     from coati_tpu_torch.models import egnn, transformer
-    from coati_tpu_torch.ops import graphs
+    from coati_tpu_torch.ops import graphs, sampling
     from coati_tpu_torch.ops import attention as plain
     from coati_tpu_torch.ops import egnn_messages as plain_messages
+    from coati_tpu_torch.ops.kernels.top_k import top_k_plain
 
     def causal(q, k, v):
         return plain.causal_attention(q, k, v, torch.float32)
@@ -1124,6 +1142,7 @@ def plain_versions():
         (transformer, "decode_attention", plain.decode_attention),
         (transformer, "decode_attention_quant", plain.decode_attention_quant),
         (egnn, "egnn_messages", plain_messages.egnn_messages),
+        (sampling, "top_k", top_k_plain),
     ]
     saved = [(module, name, getattr(module, name)) for module, name, _ in swaps]
     for module, name, fn in swaps:
@@ -1141,10 +1160,11 @@ def _wrappers():
     from coati_tpu_torch.ops.kernels.egnn_messages import egnn_messages
     from coati_tpu_torch.ops.kernels.flash_attention import flash_causal_attention
     from coati_tpu_torch.ops.kernels.packed_attention import packed_causal_attention
+    from coati_tpu_torch.ops.kernels.top_k import top_k
 
     return {w.__name__: w for w in (flash_causal_attention, decode_attention,
                                     decode_attention_quant, egnn_messages,
-                                    packed_causal_attention)}
+                                    packed_causal_attention, top_k)}
 
 
 # the backward kernels count on the forward wrapper they belong to
@@ -1980,7 +2000,8 @@ def phase_train():
     # the EGNN is not rematerialized
     expected = {"packed_causal_attention": 4 * n_x, "packed_causal_attention_backward": 2 * n_x,
                 "egnn_messages": n_e, "egnn_messages_backward": n_e,
-                "flash_causal_attention": 0, "decode_attention": 0, "decode_attention_quant": 0}
+                "flash_causal_attention": 0, "decode_attention": 0, "decode_attention_quant": 0,
+                "top_k": 0}
     check(per_step == expected, f"train: launches a step {per_step}, expected {expected}")
     intervals = np.diff(data.stamps)[warm:]
     check(len(intervals) == timed, f"train: {len(intervals)} timed steps, not {timed}")
@@ -2568,7 +2589,7 @@ def phase_coati2_train():
     # the doubled views and the AR pass, each recomputed once under remat
     expected = {"packed_causal_attention": 4 * n_x, "packed_causal_attention_backward": 2 * n_x,
                 "flash_causal_attention": 0, "decode_attention": 0, "decode_attention_quant": 0,
-                "egnn_messages": 0, "egnn_messages_backward": 0}
+                "egnn_messages": 0, "egnn_messages_backward": 0, "top_k": 0}
     check(per_step == expected, f"coati2_train: launches a step {per_step}, expected {expected}")
     intervals = np.diff(data.stamps)[warm:]
     check(len(intervals) == timed, f"coati2_train: {len(intervals)} timed steps, not {timed}")
@@ -2906,7 +2927,8 @@ def phase_train_restart(data_root: Path, ckpt: Path):
     n_x, n_e = config.n_layer_xformer, config.n_layer_e3gnn
     expected = {"packed_causal_attention": 4 * n_x, "packed_causal_attention_backward": 2 * n_x,
                 "egnn_messages": n_e, "egnn_messages_backward": n_e,
-                "flash_causal_attention": 0, "decode_attention": 0, "decode_attention_quant": 0}
+                "flash_causal_attention": 0, "decode_attention": 0, "decode_attention_quant": 0,
+                "top_k": 0}
     per_step = {k: c / (2 * n1) for k, c in counts.items()}
     check(per_step == expected, f"train_restart: launches a step {per_step}")
     # K5f and K5b at the widths the batches took: the AR pass (B 160) and
@@ -4827,6 +4849,168 @@ def phase_mla_moe():
     return {"mla_decode": launches}, k6[249]
 
 
+# ------------------------------------------------------------ K7: top-k
+
+
+def _top_k_logits(b, width, gen):
+    """(b, width) float32 logits on the card: rows of N(0, 9), then among
+    the first rows those that make a top k hard: all equal, all -inf, five
+    levels (ties everywhere), +0.0 and -0.0 across the cut, NaN of both
+    signs and two payloads with +-inf and zeros, sorted ascending, a tie of
+    seven across the 100th place, NaN and infinities scattered."""
+    x = torch.randn(b, width, generator=gen, device="cuda") * 3
+    spots = torch.randperm(width, generator=gen, device="cuda")
+    n = min(150, width)
+    rows = [
+        torch.full((width,), 1.5, device="cuda"),
+        torch.full((width,), float("-inf"), device="cuda"),
+        torch.randint(0, 5, (width,), generator=gen, device="cuda").float(),
+        -x[3].abs() - 1,
+        x[4].clone(),
+        x[5].sort().values,
+        -torch.rand(width, generator=gen, device="cuda") - 1,
+        x[7].clone(),
+    ]
+    rows[3][spots[:n:2]] = 0.0
+    rows[3][spots[1:n:2]] = -0.0
+    specials = torch.from_numpy(np.array(
+        [0x3F800000, 0xFFC00000, 0x7FC00000, 0xFF800000, 0x7F800000, 0, 0x80000000, 0x7FC00001,
+         0x80000000, 0], np.uint32).view(np.float32)).cuda()
+    m = min(10, width)
+    rows[4][:m] = specials[:m]
+    rows[4][spots[-m:]] = specials[:m]
+    top = spots[: min(95, width // 2)]
+    rows[6][top] = 10 + torch.rand(top.numel(), generator=gen, device="cuda")
+    rows[6][spots[width // 2: width // 2 + min(7, width // 4)]] = 5.0
+    m = min(40, width)
+    rows[7][spots[:m:4]] = float("nan")
+    rows[7][spots[1:m:4]] = float("inf")
+    rows[7][spots[2:m:4]] = float("-inf")
+    for r, row in enumerate(rows[:b]):
+        x[r] = row
+    return x
+
+
+def _top_k_case(label, logits, k, timed):
+    """K7 against the stable sort (its plain version) on the card: values
+    as bits and indices equal, the kernel's output repeating; at the main
+    paths' shapes, kernel, bound, plain and library (torch.topk) ms."""
+    from coati_tpu_torch.ops.kernels.top_k import row_threads, top_k, top_k_plain
+
+    before = top_k.launches
+    vals, idxs = top_k(logits, k)
+    again = top_k(logits, k)
+    torch.cuda.synchronize()
+    ref_vals, ref_idxs = top_k_plain(logits, k)
+    ref_vals = ref_vals.contiguous()
+    same_vals = torch.equal(vals.view(torch.int32), ref_vals.view(torch.int32))
+    same_idxs = torch.equal(idxs, ref_idxs)
+    rows_off = int(((vals.view(torch.int32) != ref_vals.view(torch.int32)).any(-1)
+                    | (idxs != ref_idxs).any(-1)).reshape(-1).sum())
+    line = {"phase": "top_k", "case": label, "shape": list(logits.shape), "k": k,
+            "threads": row_threads(logits.shape[-1], k), "values_equal": same_vals,
+            "indices_equal": same_idxs, "rows_differing": rows_off,
+            "repeat_equal": bool(torch.equal(vals.view(torch.int32), again[0].view(torch.int32))
+                                 and torch.equal(idxs, again[1])),
+            "launches": top_k.launches - before,
+            "vals_contiguous": vals.is_contiguous() and idxs.is_contiguous()}
+    if timed:
+        rows = logits.numel() // logits.shape[-1]
+        n_bytes = logits.numel() * 4 + rows * k * (4 + 8)
+        bound, by = bound_ms(n_bytes, 0.0, torch.float32)
+        line.update({"ms": time_ms(lambda: top_k(logits, k)), "bound_ms": bound, "bound_by": by,
+                     "plain_ms": time_ms(lambda: top_k_plain(logits, k)),
+                     "library_ms": time_ms(lambda: torch.topk(logits, k, dim=-1)),
+                     "max_abs_err": 0.0 if same_vals else float("inf")})
+    emit(line)
+    check(same_vals and same_idxs and line["repeat_equal"] and line["launches"] == 2
+          and line["vals_contiguous"], f"top_k {label}: {line}")
+    return line
+
+
+def phase_top_k(model=None, tok=None):
+    """K7 (csrc/top_k.cu) on the card: against the stable sort bit for bit
+    on adversarial rows at COATI's and COATI2's decode shapes (B 1024 x
+    13,603 and x 4,266, k 100), the serving engine's 65 rows, 3-D and padded
+    rows, narrow rows (cub's block sort and, at 128 and under, PyTorch's
+    comparison sort) and the largest k and width, the sort past k 128, and
+    a ValueError for inputs outside the kernels' rule; kernel / bound / plain /
+    library ms at the two decode shapes; then the trained document's
+    production round trip of 1,024 corpus SMILES at k 100, seeded, through
+    K7 and through the stable sort: the same tokens, and one K7 launch a
+    decode step. Returns (the launches of the round trips, the case at B 1024
+    x 13,603)."""
+    from coati_tpu_torch.common import tracing
+    from coati_tpu_torch.models.api import COATI
+    from coati_tpu_torch.ops import sampling
+    from coati_tpu_torch.ops.kernels.top_k import top_k, top_k_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    main = _top_k_case("coati_decode", _top_k_logits(1024, 13603, gen), 100, timed=True)
+    _top_k_case("coati2_decode", _top_k_logits(1024, 4266, gen), 100, timed=True)
+    _top_k_case("serving_pool", _top_k_logits(65, 13603, gen), 100, timed=False)
+    _top_k_case("three_d", _top_k_logits(2 * 256, 4266, gen).view(2, 256, 4266), 100, timed=False)
+    _top_k_case("padded_rows", _top_k_logits(300, 13603, gen)[:, :12000], 100, timed=False)
+    _top_k_case("block_sort_width", _top_k_logits(1024, 1000, gen), 100, timed=False)
+    _top_k_case("comparison_sort_width", _top_k_logits(256, 128, gen), 128, timed=False)
+    _top_k_case("narrow", _top_k_logits(64, 100, gen), 7, timed=False)
+    _top_k_case("widest", _top_k_logits(16, 32768, gen), 128, timed=False)
+    _top_k_case("k2", _top_k_logits(1024, 13603, gen), 2, timed=False)
+    _top_k_case("sort_bulk_k1000", _top_k_logits(1024, 13603, gen), 1000, timed=True)
+    _top_k_case("sort_whole_row", _top_k_logits(256, 4266, gen), 4266, timed=False)
+    _top_k_case("sort_k129", _top_k_logits(64, 300, gen), 129, timed=False)
+    _top_k_case("sort_widest", _top_k_logits(16, 32768, gen), 32768, timed=False)
+    logits, refused, before = _top_k_logits(64, 1000, gen), {}, top_k.launches
+    for label, x, k in (("k_past_width", logits, 1001), ("k0", logits, 0),
+                        ("bfloat16", logits.bfloat16(), 100), ("strided", logits[:, ::2], 100),
+                        ("widest_plus_one", _top_k_logits(16, 32769, gen), 100)):
+        try:
+            top_k(x, k)
+        except ValueError as err:
+            refused[label] = str(err)
+    emit({"phase": "top_k_refused", "refused": refused, "launches": top_k.launches - before})
+    check(len(refused) == 5 and top_k.launches == before,
+          f"top_k: the card took an input outside the kernels' rule: {refused}")
+
+    if model is None:
+        model, tok = load_model()
+    prod = COATI(model.params, model.config.replace(dtype="bfloat16"), seed=0)
+    tokens = _tokens(tok, (BENCH_SMILES * 64)[:1024], tok.n_seq)
+    keep = _KeepRows(tok)
+
+    def run(seed):
+        prod._generator.manual_seed(seed)
+        _, _, seconds, launches = _round_trip(prod, keep, tokens, k=100, inv_temp=2.0)
+        return keep.rows, seconds, launches
+
+    run(3)  # warm-up: the decode graph is captured on a key's second use
+    run(3)
+    tracing.reset()
+    tracing.start()
+    kernel = [run(30 + i) for i in range(3)]
+    steps = tracing.snapshot()["spans"].get("decode.step", {}).get("count", 0)
+    tracing.stop()
+    real = sampling.top_k
+    sampling.top_k = top_k_plain
+    try:
+        plain = [run(30 + i) for i in range(3)]
+    finally:
+        sampling.top_k = real
+    launches = sum(r[2]["top_k"] for r in kernel)
+    line = {"phase": "top_k_round_trip", "batch": 1024, "k": 100, "inv_temp": 2.0,
+            "seeds": [30, 31, 32],
+            "tokens_equal": all(np.array_equal(a[0], b[0]) for a, b in zip(kernel, plain)),
+            "decode_steps": steps, "k7_launches": launches,
+            "plain_launches": sum(r[2]["top_k"] for r in plain),
+            "seconds_k7": [r[1] for r in kernel], "seconds_stable_sort": [r[1] for r in plain]}
+    emit(line)
+    check(line["tokens_equal"], "top_k: the round trip's tokens differ from the stable sort's")
+    check(launches == steps > 0 and line["plain_launches"] == 0,
+          f"top_k: {launches} K7 launches over {steps} decode steps")
+    _profile(lambda: run(33), "top_k_round_trip", statistics.median(line["seconds_k7"]))
+    return {"top_k": launches}, main
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only", file=sys.stderr)
@@ -4845,6 +5029,11 @@ def main() -> int:
     if sys.argv[1:] == ["train_graph"]:  # that phase alone
         phase_train_graph()
         emit({"ok": True, "phase": "train_graph"})
+        return 0
+    if sys.argv[1:] == ["top_k"]:  # that phase alone
+        phase_build()
+        phase_top_k()
+        emit({"ok": True, "phase": "top_k"})
         return 0
 
     def lap(phase):
@@ -4872,6 +5061,8 @@ def main() -> int:
     lap("k1_positions")
     phase_decode_graph(model, tok)
     lap("decode_graph")
+    paths["top_k"], chosen["top_k"] = phase_top_k(model, tok)
+    lap("top_k")
     del model
     paths["mla_moe"], chosen["mla_decode"] = phase_mla_moe()
     lap("mla_moe")
@@ -4934,6 +5125,7 @@ def main() -> int:
         "packed_causal_attention_backward": ("packed_attention_bwd.cu",
                                              "packed_attention.py:282"),
         "mla_decode": ("mla_decode.cu", None),  # K6: the JAX package has no latent attention
+        "top_k": ("top_k.cu", None),  # K7: the JAX package's sampler takes lax.top_k
     }
     kernels = []
     for name, (source, replaces) in sources.items():

@@ -39,7 +39,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = (
     "flash_attention", "decode_attention", "egnn_messages", "packed_attention",
-    "egnn_messages_bwd", "packed_attention_bwd", "mla_decode",
+    "egnn_messages_bwd", "packed_attention_bwd", "mla_decode", "top_k",
 )
 HEADERS = ("common.cuh", "mma.cuh", "egnn_items.cuh")  # every header a source includes: hashed into each library
 NVCC_FLAGS = (

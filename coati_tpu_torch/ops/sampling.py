@@ -18,13 +18,16 @@ from typing import Optional
 
 import torch
 
+from coati_tpu_torch.ops.kernels.top_k import top_k
+
 
 def top_k_candidates(logits: torch.Tensor, k: int):
     """(values, indices), each (..., k): the k largest logits, sorted
-    descending, ties ordered by lower index first. torch.topk leaves the
-    order of ties unspecified, so this takes a stable sort."""
-    vals, idxs = torch.sort(logits, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idxs[..., :k]
+    descending, ties ordered by lower index first, as a stable sort gives
+    them (torch.topk leaves the order of ties unspecified). On the card K7
+    finds them without sorting the row (ops/kernels/top_k.py); CPU tensors
+    take the stable sort."""
+    return top_k(logits, k)
 
 
 def top_k_filter(logits: torch.Tensor, k: int, approx: bool = False) -> torch.Tensor:

@@ -108,7 +108,7 @@ def test_kernel_build_module_imports_without_nvcc(monkeypatch):
     assert calls == []
     assert build.SOURCES == (
         "flash_attention", "decode_attention", "egnn_messages", "packed_attention",
-        "egnn_messages_bwd", "packed_attention_bwd", "mla_decode",
+        "egnn_messages_bwd", "packed_attention_bwd", "mla_decode", "top_k",
     )
     for name in build.SOURCES:
         assert (build.CSRC_DIR / f"{name}.cu").exists()

@@ -742,11 +742,17 @@ def test_sample_top_k_greedy_is_token_exact():
     assert mine[:4].tolist() == [7] * 4
 
 
-def test_top_k_candidates_match_lax_top_k_with_ties():
+@pytest.mark.parametrize("layout", ["rows", "three_d", "strided", "transposed"])
+def test_top_k_candidates_match_lax_top_k_with_ties(layout):
     """Exactly k candidates, in lax.top_k's order: descending, ties by
-    lower index, including a tie straddling the k-th place."""
-    logits = np.random.default_rng(51).integers(0, 6, size=(32, 40)).astype(np.float32)
-    vals, idxs = tsamp.top_k_candidates(_t(logits), 9)
+    lower index, including a tie straddling the k-th place; on 2-D, 3-D,
+    strided and transposed logits."""
+    rng = np.random.default_rng(51)
+    shape = {"rows": (32, 40), "three_d": (4, 8, 40), "strided": (32, 80), "transposed": (40, 32)}
+    base = _t(rng.integers(0, 6, size=shape[layout]).astype(np.float32))
+    given = base[:, ::2] if layout == "strided" else base.t() if layout == "transposed" else base
+    logits = given.contiguous().numpy()
+    vals, idxs = tsamp.top_k_candidates(given, 9)
     jvals, jidxs = jax.lax.top_k(jnp.asarray(logits), 9)
     np.testing.assert_array_equal(vals.numpy(), np.asarray(jvals))
     np.testing.assert_array_equal(idxs.numpy(), np.asarray(jidxs))
